@@ -1,0 +1,234 @@
+// Fused per-(tile, lane) candidate scans for the served top-k paths.
+//
+// Both kernels compute the candidate cells of ucfp_tpu/ops/pallas_scan.py
+// exactly: the catalog is viewed as [rows, 128] lanes, a tile is a run of
+// rows, and each (tile, lane) cell keeps its best row -- ties go to the
+// lowest row (the reference's _lane_argbest / _qblock_argbest). The final
+// top-k over the tiles x 128 candidates stays outside the kernels
+// (ops/fused_scan.py), as lax.top_k sits outside the Pallas call in the
+// reference. The TPU block shapes ([R, W, 128] host transpose, SUB=8 output
+// padding, query padding) were Mosaic workarounds and are not copied.
+//
+// ucfp_scores_cells replaces pallas_scan.scores_topk_fused_batched
+// (_scores_kernel_batched). Bound: device memory -- it reads each score
+// once (Q*C*4 bytes for f32, half for bf16) and does one compare per
+// element. Design: one block per (256-row tile, query); 128 lanes x 8 row
+// groups of 32 rows, so a warp reads 128 B of consecutive scores per row
+// (coalesced) and each SM has many loads in flight; the 8 partial winners
+// of a lane merge through shared memory in row order, so the lowest row
+// keeps winning ties. At Q=1 a 2^20-row catalog gives only 32 blocks for
+// the 132 SMs; that under-fill is left for a later change.
+//
+// ucfp_hamming_cells replaces pallas_scan.hamming_topk_fused_batched
+// (_hamming_kernel_batched). Bound: the popcount issue rate once a block
+// holds more than a few queries. Compute capability 9.0 issues __popc at
+// 16 per clock per SM, a quarter of its XOR/add/compare rate (64), so the
+// W popcounts per (query, row) take longer than reading the row's 4W + 1
+// bytes from device memory whenever Q * W / (4W + 1) exceeds about 1.25
+// (Q >= 6 at W = 2); a single query is bound by device memory. Design:
+// one block per (128-row tile, block of <= 8 queries), so each row is
+// read once per 8 queries; one thread per lane walking its 128 rows in
+// ascending order straight from the [C, W] layout (adjacent lanes read
+// adjacent rows, vector loads of the row's words); the query block in
+// shared memory (broadcast reads); one __popc per word and query, the
+// fewest the function needs; and a strict '<' so the first row of the
+// minimum wins. Moving part of the popcounts onto the 64-per-clock
+// integer pipe (a SWAR count) is left for a later change.
+//
+// Both entry points have a plain C interface (loaded with ctypes), launch
+// on the caller's stream, allocate nothing, and return cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int LANES = 128;
+constexpr int SCORE_TILE_ROWS = 256;  // pallas_scan.ROWS_PER_TILE
+constexpr int SCORE_GROUPS = 8;       // row groups per scores block
+constexpr int SCORE_GROUP_ROWS = SCORE_TILE_ROWS / SCORE_GROUPS;
+constexpr int HAM_TILE_ROWS = 128;    // pallas_scan.ROWS_PER_TILE // 2
+constexpr int QSEL = 8;               // pallas_scan.QSEL
+constexpr int MAX_WORDS = 16;         // pallas_scan.MAX_FUSED_HAMMING_WORDS
+constexpr int INVALID_DIST = 1 << 30;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T, bool LARGEST>
+__global__ void __launch_bounds__(LANES * SCORE_GROUPS)
+scores_cells_kernel(const T* __restrict__ scores, long long c, int tiles,
+                    T* __restrict__ best_out, int* __restrict__ idx_out) {
+  const int lane = threadIdx.x;
+  const int group = threadIdx.y;
+  const int t = blockIdx.x;
+  const long long q = blockIdx.y;
+  const T* tile = scores + q * c + (long long)t * SCORE_TILE_ROWS * LANES + lane;
+  const T* p = tile + (long long)group * SCORE_GROUP_ROWS * LANES;
+
+  float best = to_f32(p[0]);
+  int best_r = 0;
+#pragma unroll 8
+  for (int r = 1; r < SCORE_GROUP_ROWS; ++r) {
+    const float v = to_f32(p[(long long)r * LANES]);
+    if (LARGEST ? (v > best) : (v < best)) {
+      best = v;
+      best_r = r;
+    }
+  }
+
+  __shared__ float s_val[SCORE_GROUPS][LANES];
+  __shared__ int s_row[SCORE_GROUPS][LANES];
+  s_val[group][lane] = best;
+  s_row[group][lane] = group * SCORE_GROUP_ROWS + best_r;
+  __syncthreads();
+  if (group != 0) return;
+  // groups hold ascending row ranges: a strict comparison keeps the
+  // earliest group's (lowest) row on ties
+  for (int g = 1; g < SCORE_GROUPS; ++g) {
+    const float v = s_val[g][lane];
+    if (LARGEST ? (v > best) : (v < best)) {
+      best = v;
+      best_r = s_row[g][lane];
+    }
+  }
+  const long long out = (q * tiles + t) * LANES + lane;
+  // the winning row's own value, in the input type
+  best_out[out] = tile[(long long)best_r * LANES];
+  idx_out[out] = (t * SCORE_TILE_ROWS + best_r) * LANES + lane;
+}
+
+template <int W>
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ p, uint32_t (&rw)[W]) {
+  if constexpr (W % 4 == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) {
+      const uint4 x = __ldg(v + i);
+      rw[4 * i] = x.x;
+      rw[4 * i + 1] = x.y;
+      rw[4 * i + 2] = x.z;
+      rw[4 * i + 3] = x.w;
+    }
+  } else if constexpr (W % 2 == 0) {
+    const uint2* v = reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) {
+      const uint2 x = __ldg(v + i);
+      rw[2 * i] = x.x;
+      rw[2 * i + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) rw[i] = __ldg(p + i);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(LANES)
+hamming_cells_kernel(const uint32_t* __restrict__ queries, int nq_total,
+                     const uint32_t* __restrict__ db, const uint8_t* __restrict__ valid,
+                     int tiles, int* __restrict__ dist_out, int* __restrict__ idx_out) {
+  const int lane = threadIdx.x;
+  const int t = blockIdx.x;
+  const int q0 = blockIdx.y * QSEL;
+  const int nq = min(QSEL, nq_total - q0);
+
+  __shared__ uint32_t s_q[QSEL][W];
+  for (int i = lane; i < QSEL * W; i += LANES) {
+    const int qi = i / W;
+    s_q[qi][i % W] = qi < nq ? queries[(long long)(q0 + qi) * W + i % W] : 0u;
+  }
+  __syncthreads();
+
+  int best[QSEL];
+  int best_r[QSEL];
+#pragma unroll
+  for (int qi = 0; qi < QSEL; ++qi) {
+    best[qi] = 0x7fffffff;
+    best_r[qi] = 0;
+  }
+  for (int r = 0; r < HAM_TILE_ROWS; ++r) {
+    const long long row = ((long long)t * HAM_TILE_ROWS + r) * LANES + lane;
+    uint32_t rw[W];
+    load_row<W>(db + row * W, rw);
+    const bool ok = valid[row] != 0;
+#pragma unroll
+    for (int qi = 0; qi < QSEL; ++qi) {
+      int d = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) d += __popc(s_q[qi][w] ^ rw[w]);
+      if (!ok) d = INVALID_DIST;
+      if (d < best[qi]) {
+        best[qi] = d;
+        best_r[qi] = r;
+      }
+    }
+  }
+#pragma unroll
+  for (int qi = 0; qi < QSEL; ++qi) {
+    if (qi < nq) {
+      const long long out = ((long long)(q0 + qi) * tiles + t) * LANES + lane;
+      dist_out[out] = best[qi];
+      idx_out[out] = (t * HAM_TILE_ROWS + best_r[qi]) * LANES + lane;
+    }
+  }
+}
+
+template <int W>
+void launch_hamming(const uint32_t* queries, int q, const uint32_t* db, const uint8_t* valid,
+                    int tiles, int* dist, int* idx, cudaStream_t stream) {
+  const dim3 grid(tiles, (q + QSEL - 1) / QSEL);
+  hamming_cells_kernel<W><<<grid, LANES, 0, stream>>>(queries, q, db, valid, tiles, dist, idx);
+}
+
+}  // namespace
+
+extern "C" int ucfp_scores_cells(const void* scores, int is_bf16, int largest, int q,
+                                 long long c, void* best, int* idx, void* stream) {
+  if (q <= 0 || q > 65535 || c <= 0 || c % (SCORE_TILE_ROWS * LANES) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (int)(c / (SCORE_TILE_ROWS * LANES));
+  const dim3 grid(tiles, q);
+  const dim3 block(LANES, SCORE_GROUPS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    const auto* in = static_cast<const __nv_bfloat16*>(scores);
+    auto* out = static_cast<__nv_bfloat16*>(best);
+    if (largest)
+      scores_cells_kernel<__nv_bfloat16, true><<<grid, block, 0, s>>>(in, c, tiles, out, idx);
+    else
+      scores_cells_kernel<__nv_bfloat16, false><<<grid, block, 0, s>>>(in, c, tiles, out, idx);
+  } else {
+    const auto* in = static_cast<const float*>(scores);
+    auto* out = static_cast<float*>(best);
+    if (largest)
+      scores_cells_kernel<float, true><<<grid, block, 0, s>>>(in, c, tiles, out, idx);
+    else
+      scores_cells_kernel<float, false><<<grid, block, 0, s>>>(in, c, tiles, out, idx);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ucfp_hamming_cells(const uint32_t* queries, int q, int w, const uint32_t* db,
+                                  const uint8_t* valid, long long c, int* dist, int* idx,
+                                  void* stream) {
+  if (q <= 0 || (q + QSEL - 1) / QSEL > 65535 || w < 1 || w > MAX_WORDS || c <= 0 ||
+      c % (HAM_TILE_ROWS * LANES) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (int)(c / (HAM_TILE_ROWS * LANES));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (w) {
+#define UCFP_HAMMING_CASE(N) \
+  case N:                    \
+    launch_hamming<N>(queries, q, db, valid, tiles, dist, idx, s); \
+    break;
+    UCFP_HAMMING_CASE(1) UCFP_HAMMING_CASE(2) UCFP_HAMMING_CASE(3) UCFP_HAMMING_CASE(4)
+    UCFP_HAMMING_CASE(5) UCFP_HAMMING_CASE(6) UCFP_HAMMING_CASE(7) UCFP_HAMMING_CASE(8)
+    UCFP_HAMMING_CASE(9) UCFP_HAMMING_CASE(10) UCFP_HAMMING_CASE(11) UCFP_HAMMING_CASE(12)
+    UCFP_HAMMING_CASE(13) UCFP_HAMMING_CASE(14) UCFP_HAMMING_CASE(15) UCFP_HAMMING_CASE(16)
+#undef UCFP_HAMMING_CASE
+  }
+  return (int)cudaGetLastError();
+}

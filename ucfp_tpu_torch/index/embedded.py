@@ -1,0 +1,1228 @@
+"""EmbeddedBackend: WAL-durable host store + device-cached ANN matrices.
+
+Port of ucfp_tpu/index/embedded.py for the image and vector slice. The
+host side is the reference's: an fsync'd append-only WAL (same engines,
+same bytes on disk, so a data directory written by ucfp_tpu reopens here)
+replayed on open into per-record rows, and per-(tenant, dim) vector caches
+and per-(tenant, algorithm) packed-fingerprint caches with
+capacity-doubling padding, prefix validity (`arange < n`) and
+swap-with-last removal. Device state is a pure cache of those host
+matrices, uploaded lazily on the next query and patched row by row after
+small writes.
+
+Device side: the caches live on one torch device (the CUDA card unless
+the caller names another) as float32 vectors and int32 tensors holding
+the u32 fingerprint words. Queries run ops.knn (exact paths),
+ops.fused_scan (the CUDA candidate scans, at capacities of 32,768 rows
+or more) and ops.imagehash.multihash_weighted_topk. Row patches update
+the device tensors in place (saving a catalog copy per write); all work
+runs on one stream in launch order, so a query sees whole rows.
+
+Not in this slice (later ports): sharding, the quantized tiers
+(UCFP_KNN_QUANT other than "none" raises UnsupportedError), query
+micro-batching, LSH / BM25 / audio indexes, and autocompaction. Records
+that need one of those indexes — text (BM25) or the LSH, audio-landmark
+and haitsma algorithms — are refused on write, and a data directory that
+holds them raises UnsupportedError on open instead of dropping them.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import itertools
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import (
+    FingerprintMeta,
+    Hit,
+    HitSource,
+    IngestError,
+    Modality,
+    Record,
+    RecordNotFound,
+    UnsupportedError,
+    quantize_pool_frac,
+)
+from ..device import resolve_device
+from ..ops import fused_scan
+from ..ops import knn as knn_ops
+from .backend import IndexBackend
+
+LSH_ALGORITHM = "minhash-lsh-h128"
+AUDIO_LANDMARK_ALGOS = ("audiofp-wang-v1", "audiofp-panako-v1")
+HAITSMA_ALGORITHM = "audiofp-haitsma-v1"
+#: algorithms whose queries need an index this slice does not port yet
+LATER_SLICE_ALGOS = frozenset((LSH_ALGORITHM, *AUDIO_LANDMARK_ALGOS,
+                               HAITSMA_ALGORITHM))
+
+
+def _record_event(rec: Record) -> dict:
+    return {
+        "op": "upsert",
+        "tenant_id": rec.tenant_id,
+        "record_id": rec.record_id,
+        "modality": rec.modality.value,
+        "algorithm": rec.algorithm,
+        "config_hash": rec.config_hash,
+        "format_version": rec.format_version,
+        "fingerprint": rec.fingerprint,
+        "embedding": rec.embedding,
+        "model_id": rec.model_id,
+        "metadata": rec.metadata,
+        "text": rec.text,
+    }
+
+
+def _check_in_slice(algorithm: str, text, where: str) -> None:
+    if algorithm in LATER_SLICE_ALGOS:
+        raise UnsupportedError(
+            f"{where}: algorithm {algorithm!r} needs an index this build "
+            f"does not serve yet (supported: image hashes and vectors)"
+        )
+    if text is not None:
+        raise UnsupportedError(
+            f"{where}: records with text need the BM25 index, which this "
+            f"build does not serve yet"
+        )
+
+
+@dataclass
+class _RowCache:
+    """Dense row matrix with capacity-doubled padding and swap-with-last
+    removal (the reference's _RowCache, unchanged). One implementation
+    serves the f32 embedding caches (width = dim) and the packed uint32
+    fingerprint caches (width = words)."""
+
+    width: int
+    dtype: type = np.float32
+    rids: list[int] = field(default_factory=list)
+    rows: dict[int, int] = field(default_factory=dict)  # rid -> row
+    data: np.ndarray | None = None  # [cap, width]
+    # interned (algorithm, model_id) codes per row, for device-masked
+    # query filters; only the vector caches track them
+    track_tags: bool = False
+    tags: np.ndarray | None = None  # [cap, 2] int32
+    n: int = 0
+    dirty: bool = True
+    device: tuple | None = None  # device-side cache tensors
+    # rows touched since the last device sync; None = full re-upload
+    pending: list | None = None
+    # bumped whenever a row CHANGES POSITION (remove's swap-with-last);
+    # queries map kernel indices back to rids after the kernel by
+    # re-checking gen instead of copying the rid list under the lock
+    gen: int = 0
+
+    MAX_PENDING = 256
+
+    def _note(self, row: int) -> None:
+        if self.dirty or self.pending is None:
+            self.dirty = True
+            self.pending = None
+        elif len(self.pending) >= self.MAX_PENDING:
+            self.dirty = True
+            self.pending = None
+        else:
+            self.pending.append(row)
+
+    def upsert(self, rid: int, vec: np.ndarray,
+               tag: tuple[int, int] | None = None) -> None:
+        if rid in self.rows:
+            row = self.rows[rid]
+            self.data[row] = vec
+            if self.track_tags and tag is not None:
+                self.tags[row] = tag
+            self._note(row)
+        else:
+            if self.data is None:
+                self.data = np.zeros((1024, self.width), self.dtype)
+                if self.track_tags:
+                    self.tags = np.zeros((1024, 2), np.int32)
+                self.dirty = True
+                self.pending = None
+            elif self.n == self.data.shape[0]:
+                grown = np.zeros((self.data.shape[0] * 2, self.width), self.dtype)
+                grown[: self.n] = self.data
+                self.data = grown
+                if self.track_tags:
+                    gt = np.zeros((grown.shape[0], 2), np.int32)
+                    gt[: self.n] = self.tags
+                    self.tags = gt
+                self.dirty = True  # capacity change: full re-upload
+                self.pending = None
+            self.data[self.n] = vec
+            if self.track_tags and tag is not None:
+                self.tags[self.n] = tag
+            self.rows[rid] = self.n
+            self.rids.append(rid)
+            self._note(self.n)
+            self.n += 1
+
+    def upsert_many(self, rids: list[int], mat: np.ndarray,
+                    tag: tuple[int, int] | None = None) -> None:
+        """Bulk append of all-NEW rids (callers gate on novelty);
+        equivalent to upsert() per row, pending/dirty bookkeeping
+        included."""
+        m = len(rids)
+        if m == 0:
+            return
+        grew = False
+        if self.data is None:
+            cap = 1024
+            while cap < m:
+                cap *= 2
+            self.data = np.zeros((cap, self.width), self.dtype)
+            if self.track_tags:
+                self.tags = np.zeros((cap, 2), np.int32)
+            grew = True
+        elif self.n + m > self.data.shape[0]:
+            cap = self.data.shape[0]
+            while cap < self.n + m:
+                cap *= 2
+            grown = np.zeros((cap, self.width), self.dtype)
+            grown[: self.n] = self.data[: self.n]
+            self.data = grown
+            if self.track_tags:
+                gt = np.zeros((cap, 2), np.int32)
+                gt[: self.n] = self.tags[: self.n]
+                self.tags = gt
+            grew = True
+        self.data[self.n: self.n + m] = mat
+        if self.track_tags and tag is not None:
+            self.tags[self.n: self.n + m] = tag
+        row = self.n
+        for rid in rids:
+            self.rows[rid] = row
+            row += 1
+        self.rids.extend(rids)
+        self.n += m
+        if (grew or self.dirty or self.pending is None
+                or len(self.pending) + m > self.MAX_PENDING):
+            self.dirty = True
+            self.pending = None
+        else:
+            self.pending.extend(range(self.n - m, self.n))
+
+    def remove(self, rid: int) -> None:
+        row = self.rows.pop(rid, None)
+        if row is None:
+            return
+        self.gen += 1  # rows move: invalidate deferred rid mappings
+        last = self.n - 1
+        if row != last:
+            self.data[row] = self.data[last]
+            if self.track_tags:
+                self.tags[row] = self.tags[last]
+            moved = self.rids[last]
+            self.rids[row] = moved
+            self.rows[moved] = row
+            self._note(row)
+        self.rids.pop()
+        self.data[last] = 0
+        if self.track_tags:
+            self.tags[last] = 0
+        self._note(last)
+        self.n -= 1
+
+
+def _VecCache(dim: int) -> _RowCache:  # noqa: N802 - constructor alias
+    return _RowCache(width=dim, dtype=np.float32, track_tags=True)
+
+
+def _HamCache(words: int) -> _RowCache:  # noqa: N802 - constructor alias
+    return _RowCache(width=words, dtype=np.uint32)
+
+
+class EmbeddedBackend(IndexBackend):
+    """Single-directory embedded index on one torch device.
+
+    wal_engine: "auto" prefers the native C++ log and falls back to the
+    pure-Python JSON log; an existing file's format always wins.
+    device: None = the CUDA card (raises when there is none); "cpu" runs
+    the plain PyTorch paths on the host.
+    """
+
+    def __init__(self, data_dir: str, wal_engine: str = "auto", device=None):
+        from .wal import GroupCommitWal, JsonWal, open_wal
+
+        self.device = resolve_device(device)
+        knn_quant = os.environ.get("UCFP_KNN_QUANT", "none").lower()
+        if knn_quant != "none":
+            raise UnsupportedError(
+                f"UCFP_KNN_QUANT={knn_quant!r}: the quantized tiers are "
+                f"not served by this build (only 'none')"
+            )
+        self._tag_codes: dict[str, int] = {}  # algorithm/model_id interning
+        # tenant -> insertion-ordered record ids (listing pagination)
+        self._tenant_rows: dict[int, dict[int, None]] = {}
+        self.data_dir = data_dir
+        os.makedirs(data_dir, exist_ok=True)
+        self._wal_path = os.path.join(data_dir, "ucfp.wal")
+        self._lock = threading.Lock()  # one writer
+        self._records: dict[tuple[int, int], dict] = {}
+        self._vec: dict[tuple[int, int], _RowCache] = {}  # (tenant, dim)
+        self._ham: dict[tuple[int, str], _RowCache] = {}  # (tenant, algorithm)
+        if os.path.exists(self._wal_path) and os.path.getsize(self._wal_path) > 0:
+            wal_engine = "auto"  # the existing log's format wins
+        # group commit: concurrent requests' appends share one fsync
+        self._wal = GroupCommitWal(
+            JsonWal(self._wal_path) if wal_engine == "json"
+            else open_wal(self._wal_path, wal_engine)
+        )
+        try:
+            self._replay()
+        except BaseException:
+            self._wal.close()
+            raise
+
+    # -- WAL ----------------------------------------------------------------
+
+    def _replay(self) -> None:
+        # the native engine replays uniform fingerprint/embedding runs as
+        # columnar groups; the JSON engine replays per event — same state
+        skipped = 0
+        groups_fn = getattr(self._wal, "replay_groups", None)
+        groups = groups_fn() if groups_fn is not None else None
+        if groups is None:
+            groups = (("events", [ev]) for ev in self._wal.replay())
+        for kind, payload in groups:
+            if kind == "fp_run":
+                skipped += self._replay_fp_run(payload)
+            elif kind == "emb_run":
+                skipped += self._replay_emb_run(payload)
+            else:
+                for ev in payload:
+                    skipped += self._replay_event(ev)
+        if skipped:
+            from ..server.logging import logger
+
+            logger().warn("wal_replay_skipped_events", count=skipped)
+
+    def _replay_event(self, ev: dict) -> int:
+        # a malformed event is skipped with a warning (the reference's
+        # rule); a record outside this slice stops the open instead
+        try:
+            if ev.get("op") == "upsert":
+                _check_in_slice(ev.get("algorithm"), ev.get("text"),
+                                f"{self._wal_path} holds record "
+                                f"{ev.get('tenant_id')}/{ev.get('record_id')}")
+                self._apply_upsert(self._rec_from_wal(ev))
+            elif ev.get("op") == "delete":
+                for rid in ev["record_ids"]:
+                    self._apply_delete(ev["tenant_id"], rid)
+            return 0
+        except UnsupportedError:
+            raise
+        except Exception as e:  # noqa: BLE001 - replay must finish
+            from ..server.logging import logger
+
+            logger().warn(
+                "wal_replay_skip", op=ev.get("op"),
+                tenant_id=ev.get("tenant_id"),
+                record_id=ev.get("record_id"), error=str(e),
+            )
+            return 1
+
+    def _run_gate(self, run: dict) -> bool:
+        """What _apply_fp_rows/_apply_emb_rows handle: all-new unique
+        rids, plain Hamming algorithm, width fit. Anything else expands
+        to per-event replay, so semantics never fork."""
+        t = run["tenant_id"]
+        alg = run["algorithm"]
+        flen = run["flen"]
+        if flen <= 0 or flen % 4 or alg in LATER_SLICE_ALGOS:
+            return False
+        hcache = self._ham.get((t, alg))
+        if hcache is not None and hcache.width != flen // 4:
+            return False
+        seen: set[int] = set()
+        for rid in run["record_ids"]:
+            if rid in seen or (t, rid) in self._records:
+                return False  # dup/update: per-event semantics
+            seen.add(rid)
+        return True
+
+    def _replay_fp_run(self, run: dict) -> int:
+        """Columnar apply of one uniform fingerprint-only upsert run."""
+        from .wal import fp_run_events
+
+        if self._run_gate(run):
+            block = run["fp_block"]
+            flen = run["flen"]
+            fps = [block[i * flen: (i + 1) * flen]
+                   for i in range(len(run["record_ids"]))]
+            self._apply_fp_rows(
+                run["tenant_id"], run["algorithm"], run["record_ids"], fps,
+                flen, run["modality"], run["config_hash"],
+                run["format_version"], meta=run["metadata"], fp_block=block,
+            )
+            return 0
+        return sum(self._replay_event(ev) for ev in fp_run_events(run))
+
+    def _replay_emb_run(self, run: dict) -> int:
+        """Columnar apply of one uniform embedding upsert run (finite
+        floats only; anything else gets per-event skip accounting)."""
+        from .wal import emb_run_events
+
+        mat = run["emb_mat"]
+        if self._run_gate(run) and bool(np.all(np.isfinite(mat))):
+            block = run["fp_block"]
+            flen = run["flen"]
+            fps = [block[i * flen: (i + 1) * flen]
+                   for i in range(len(run["record_ids"]))]
+            self._apply_emb_rows(
+                run["tenant_id"], run["algorithm"], run["record_ids"], fps,
+                flen, run["modality"], run["config_hash"],
+                run["format_version"], meta=run["metadata"],
+                model_id=run["model_id"], emb_mat=mat, fp_block=block,
+            )
+            return 0
+        return sum(self._replay_event(ev) for ev in emb_run_events(run))
+
+    @staticmethod
+    def _rec_from_wal(ev: dict) -> Record:
+        return Record(
+            tenant_id=ev["tenant_id"],
+            record_id=ev["record_id"],
+            modality=Modality(ev["modality"]),
+            algorithm=ev["algorithm"],
+            fingerprint=ev["fingerprint"],
+            format_version=ev.get("format_version", 1),
+            config_hash=ev.get("config_hash", 0),
+            embedding=ev.get("embedding"),
+            model_id=ev.get("model_id"),
+            metadata=ev.get("metadata", b""),
+            text=ev.get("text"),
+        )
+
+    # -- mutations ------------------------------------------------------------
+
+    def _apply_upsert(self, rec: Record) -> None:
+        key = (rec.tenant_id, rec.record_id)
+        # convert fallible inputs BEFORE touching any table
+        emb_arr = (np.asarray(rec.embedding, np.float32)
+                   if rec.embedding is not None else None)
+        if emb_arr is not None and (emb_arr.ndim != 1 or not np.all(np.isfinite(emb_arr))):
+            raise ValueError("embedding must be a flat finite float vector")
+        packed = np.asarray(knn_ops.pack_bits_to_u32(rec.fingerprint), np.uint32)
+        old = self._records.get(key)
+        if old is None:
+            self._tenant_rows.setdefault(rec.tenant_id, {})[rec.record_id] = None
+        self._records[key] = {
+            "modality": rec.modality.value,
+            "algorithm": rec.algorithm,
+            "config_hash": rec.config_hash,
+            "format_version": rec.format_version,
+            "fingerprint": rec.fingerprint,
+            "embedding": emb_arr,
+            "model_id": rec.model_id,
+            "metadata": rec.metadata,
+            "text": rec.text,
+        }
+        # vectors table
+        if old is not None and old["embedding"] is not None:
+            olddim = len(old["embedding"])
+            if rec.embedding is None or len(rec.embedding) != olddim:
+                c = self._vec.get((rec.tenant_id, olddim))
+                if c:
+                    c.remove(rec.record_id)
+        if emb_arr is not None:
+            dim = len(emb_arr)
+            cache = self._vec.setdefault((rec.tenant_id, dim), _VecCache(dim))
+            cache.upsert(
+                rec.record_id, emb_arr,
+                tag=(self._tag_code(rec.algorithm),
+                     self._tag_code(rec.model_id)),
+            )
+        # packed fingerprint table
+        if old is not None and old["algorithm"] != rec.algorithm:
+            h = self._ham.get((rec.tenant_id, old["algorithm"]))
+            if h:
+                h.remove(rec.record_id)
+        hcache = self._ham.get((rec.tenant_id, rec.algorithm))
+        if hcache is None:
+            hcache = _HamCache(words=len(packed))
+            self._ham[(rec.tenant_id, rec.algorithm)] = hcache
+        if len(packed) == hcache.width:
+            hcache.upsert(rec.record_id, packed)
+        else:
+            # width mismatch: drop any stale row so knn_fingerprint never
+            # scores this record against its previous fingerprint
+            hcache.remove(rec.record_id)
+
+    def _batch_rows_ok(self, recs: list[Record], t: int, alg: str,
+                       flen: int, emb: bool) -> bool:
+        """Shared gate of the vectorized applies: one tenant/algorithm/
+        width, all-new unique rids, embeddings all present (or all
+        absent) with one model_id."""
+        model = recs[0].model_id
+        seen: set[int] = set()
+        for r in recs:
+            if (r.tenant_id != t or r.algorithm != alg
+                    or (r.embedding is not None) != emb or r.text is not None
+                    or (emb and r.model_id != model)
+                    or len(r.fingerprint) != flen
+                    or r.record_id in seen
+                    or (t, r.record_id) in self._records):
+                return False
+            seen.add(r.record_id)
+        hcache = self._ham.get((t, alg))
+        return hcache is None or hcache.width == flen // 4
+
+    def _apply_upsert_batch(self, recs: list[Record],
+                            emb_mat: np.ndarray | None = None) -> bool:
+        """Vectorized apply for one batch of all-NEW records sharing
+        (tenant, algorithm) and fingerprint width. Returns False —
+        mutating NOTHING — when any record doesn't fit; the caller then
+        runs the per-record path."""
+        first = recs[0]
+        t = first.tenant_id
+        alg = first.algorithm
+        flen = len(first.fingerprint)
+        if flen == 0 or flen % 4 != 0:
+            return False
+        emb = first.embedding is not None
+        if not self._batch_rows_ok(recs, t, alg, flen, emb):
+            return False
+        fps = [bytes(r.fingerprint) for r in recs]
+        rids = [r.record_id for r in recs]
+        if not emb:
+            self._apply_fp_rows(t, alg, rids, fps, flen, first.modality.value,
+                                None, None, recs=recs)
+            return True
+        mat = emb_mat
+        if mat is None:
+            try:
+                mat = np.asarray([r.embedding for r in recs], np.float32)
+            except (TypeError, ValueError):
+                return False
+            if (mat.ndim != 2 or mat.shape[0] != len(recs)
+                    or not np.all(np.isfinite(mat))):
+                return False  # ragged / non-finite: per-record errors
+        self._apply_emb_rows(t, alg, rids, fps, flen, first.modality.value,
+                             None, None, model_id=first.model_id,
+                             emb_mat=mat, recs=recs)
+        return True
+
+    def _apply_delete(self, tenant_id: int, rid: int) -> None:
+        old = self._records.pop((tenant_id, rid), None)
+        if old is None:
+            return
+        t = self._tenant_rows.get(tenant_id)
+        if t is not None:
+            t.pop(rid, None)
+        if old["embedding"] is not None:
+            c = self._vec.get((tenant_id, len(old["embedding"])))
+            if c:
+                c.remove(rid)
+        h = self._ham.get((tenant_id, old["algorithm"]))
+        if h:
+            h.remove(rid)
+
+    def _tag_code(self, value: str | None) -> int:
+        """Intern algorithm/model_id strings to dense int codes for the
+        per-row filter tags (0 = absent)."""
+        if value is None:
+            return 0
+        code = self._tag_codes.get(value)
+        if code is None:
+            code = len(self._tag_codes) + 1
+            self._tag_codes[value] = code
+        return code
+
+    def _vector_filter_mask(self, cache: _RowCache, flt: dict):
+        """[cap] bool row mask for a supported filter (raises Unsupported
+        for other shapes); None when no row can match."""
+        from .backend import validate_filter
+
+        validate_filter(flt)
+        mask = np.ones(cache.data.shape[0], bool)
+        for col, key in ((0, "algorithm"), (1, "model_id")):
+            v = flt.get(key)
+            if v is None:
+                continue
+            code = self._tag_codes.get(v)
+            if code is None:
+                return None  # value never ingested: nothing matches
+            mask &= cache.tags[:, col] == code
+        return mask
+
+    # -- IndexBackend -----------------------------------------------------------
+
+    def _validate_records(self, records: list[Record]) -> "np.ndarray | None":
+        """Reject malformed or out-of-slice records BEFORE the WAL append.
+        A uniform all-embedding batch validates as one matrix conversion,
+        returned for the batched apply to reuse."""
+        for rec in records:
+            _check_in_slice(rec.algorithm, rec.text,
+                            f"record {rec.tenant_id}/{rec.record_id}")
+        mat = None
+        if len(records) >= 2 and all(r.embedding is not None for r in records):
+            try:
+                m = np.asarray([r.embedding for r in records], np.float32)
+            except (TypeError, ValueError):
+                m = None
+            if (m is not None and m.ndim == 2
+                    and m.shape[0] == len(records)
+                    and np.all(np.isfinite(m))):
+                mat = m
+        for rec in records:
+            if mat is None and rec.embedding is not None:
+                emb = np.asarray(rec.embedding, np.float32)
+                if emb.ndim != 1 or not np.all(np.isfinite(emb)):
+                    raise ValueError(
+                        f"record {rec.tenant_id}/{rec.record_id}: embedding "
+                        f"must be a flat finite float vector"
+                    )
+            if not isinstance(rec.fingerprint, (bytes, bytearray)):
+                raise ValueError(
+                    f"record {rec.tenant_id}/{rec.record_id}: fingerprint "
+                    f"must be bytes"
+                )
+        return mat
+
+    async def upsert(self, records: list[Record]) -> None:
+        wal = self._wal  # snapshot: close() may null the attr mid-await
+
+        def apply():
+            emb_mat = self._validate_records(records)
+            self._check_durability(wal)
+            with self._lock:
+                # buffered WAL append and memory apply share ONE critical
+                # section, so replay order always equals apply order; the
+                # shared fsync happens after the lock drops (group commit)
+                ticket = (wal.append_buffered(
+                    [_record_event(r) for r in records]
+                ) if wal is not None else None)
+                if len(records) < 2 or not self._apply_upsert_batch(
+                        records, emb_mat=emb_mat):
+                    for rec in records:
+                        self._apply_upsert(rec)
+            return ticket
+
+        ticket = await asyncio.to_thread(apply)
+        if ticket is not None:
+            # durability before ack: a failed group fsync raises here
+            await wal.wait_durable(ticket)
+
+    def _columnar_ok(self, n: int, algorithm: str, fingerprints: list,
+                     record_ids: list[int]) -> int:
+        """Fingerprint width when a batch qualifies for the columnar path,
+        else -1 (the Record path then owns every error)."""
+        flen = len(fingerprints[0]) if isinstance(
+            fingerprints[0], (bytes, bytearray)) else -1
+        ok = (
+            n >= 2 and flen > 0 and flen % 4 == 0
+            and algorithm not in LATER_SLICE_ALGOS
+            and all(type(fp) is bytes and len(fp) == flen for fp in fingerprints)
+            and all(type(r) is int and 0 <= r <= 2**64 - 1 for r in record_ids)
+        )
+        return flen if ok else -1
+
+    def _novel_locked(self, tenant_id: int, algorithm: str, flen: int,
+                      record_ids: list[int]) -> bool:
+        hcache = self._ham.get((tenant_id, algorithm))
+        if hcache is not None and hcache.width != flen // 4:
+            return False  # width clash: per-record path errors
+        seen: set[int] = set()
+        for rid in record_ids:
+            if rid in seen or (tenant_id, rid) in self._records:
+                return False  # dup/update: per-record semantics
+            seen.add(rid)
+        return True
+
+    async def upsert_fingerprint_batch(
+        self,
+        tenant_id: int,
+        algorithm: str,
+        record_ids: list[int],
+        fingerprints: list[bytes],
+        *,
+        modality=None,
+        config_hash: int = 0,
+        format_version: int = 1,
+    ) -> None:
+        """Columnar fast path for the uniform batch-ingest shape: one WAL
+        run append + one vectorized store apply. Equivalent to upsert() of
+        the corresponding Records (identical WAL bytes and state), and
+        falls back to that path whenever the batch doesn't qualify."""
+        from ..core.types import _check_u32, _check_u64
+
+        if modality is None:
+            modality = Modality.IMAGE
+        n = len(record_ids)
+        if n != len(fingerprints):
+            raise ValueError("record_ids and fingerprints length mismatch")
+        if n == 0:
+            return
+        _check_u32("tenant_id", tenant_id)
+        _check_u64("config_hash", config_hash)
+        wal = self._wal
+        flen = self._columnar_ok(n, algorithm, fingerprints, record_ids)
+
+        def apply():
+            self._check_durability(wal)
+            with self._lock:
+                if not self._novel_locked(tenant_id, algorithm, flen, record_ids):
+                    return None
+                ticket = (wal.append_buffered_run(
+                    tenant_id, modality.value, record_ids, fingerprints,
+                    algorithm=algorithm, config_hash=config_hash,
+                    format_version=format_version,
+                ) if wal is not None else None)
+                self._apply_fp_rows(
+                    tenant_id, algorithm, record_ids, fingerprints, flen,
+                    modality.value, config_hash, format_version,
+                )
+                return (ticket,)
+
+        done = await asyncio.to_thread(apply) if flen > 0 else None
+        if done is None:
+            await self.upsert([
+                Record(tenant_id=tenant_id, record_id=rid,
+                       modality=modality, algorithm=algorithm,
+                       fingerprint=fp, config_hash=config_hash,
+                       format_version=format_version)
+                for rid, fp in zip(record_ids, fingerprints)
+            ])
+            return
+        (ticket,) = done
+        if ticket is not None:
+            await wal.wait_durable(ticket)
+
+    async def upsert_embedding_batch(
+        self,
+        tenant_id: int,
+        algorithm: str,
+        record_ids: list[int],
+        embeddings,
+        *,
+        fingerprints: list[bytes] | None = None,
+        modality=None,
+        model_id: str | None = None,
+        config_hash: int = 0,
+        format_version: int = 1,
+    ) -> None:
+        """Columnar fast path for bulk vector loads: one WAL run append +
+        one vectorized store apply. `fingerprints=None` derives each row's
+        f32-LE bytes. Equivalent to upsert() of the corresponding Records,
+        falling back to that path whenever the batch doesn't qualify."""
+        from ..core.types import _check_u32, _check_u64
+
+        if modality is None:
+            modality = Modality.IMAGE
+        n = len(record_ids)
+        mat = np.asarray(embeddings, np.float32)
+        if mat.ndim != 2 or mat.shape[0] != n:
+            raise ValueError(
+                f"embeddings must be an [n={n}, d] matrix, got {mat.shape}"
+            )
+        if not np.all(np.isfinite(mat)):
+            raise ValueError("embeddings must be finite")
+        if n == 0:
+            return
+        if fingerprints is None:
+            step = 4 * mat.shape[1]
+            block = mat.astype("<f4", copy=False).tobytes()
+            fingerprints = [block[i * step: (i + 1) * step] for i in range(n)]
+        if n != len(fingerprints):
+            raise ValueError("record_ids and fingerprints length mismatch")
+        _check_u32("tenant_id", tenant_id)
+        _check_u64("config_hash", config_hash)
+        wal = self._wal
+        flen = (self._columnar_ok(n, algorithm, fingerprints, record_ids)
+                if mat.shape[1] > 0 else -1)
+
+        def apply():
+            self._check_durability(wal)
+            with self._lock:
+                if not self._novel_locked(tenant_id, algorithm, flen, record_ids):
+                    return None
+                ticket = (wal.append_buffered_emb_run(
+                    tenant_id, modality.value, record_ids, fingerprints,
+                    mat, algorithm=algorithm, model_id=model_id,
+                    config_hash=config_hash,
+                    format_version=format_version,
+                ) if wal is not None else None)
+                self._apply_emb_rows(
+                    tenant_id, algorithm, record_ids, fingerprints, flen,
+                    modality.value, config_hash, format_version,
+                    model_id=model_id, emb_mat=mat,
+                )
+                return (ticket,)
+
+        done = await asyncio.to_thread(apply) if flen > 0 else None
+        if done is None:
+            await self.upsert([
+                Record(tenant_id=tenant_id, record_id=rid,
+                       modality=modality, algorithm=algorithm,
+                       fingerprint=bytes(fp), config_hash=config_hash,
+                       format_version=format_version,
+                       embedding=mat[i].tolist(), model_id=model_id)
+                for i, (rid, fp) in enumerate(zip(record_ids, fingerprints))
+            ])
+            return
+        (ticket,) = done
+        if ticket is not None:
+            await wal.wait_durable(ticket)
+
+    def _store_rows(self, t: int, alg: str, rids: list[int], fps: list[bytes],
+                    flen: int, mod_value: str, cfg, fmt, meta: bytes,
+                    model_id, embs, recs, fp_block) -> None:
+        """Row tables + packed-fingerprint cache for a gated uniform run
+        (caller holds the lock, or owns the store during replay, and has
+        verified novelty + width fit). `recs`, when given, supplies the
+        per-record fields (the Record path's rows)."""
+        hcache = self._ham.get((t, alg))
+        if hcache is None:
+            hcache = _HamCache(words=flen // 4)
+            self._ham[(t, alg)] = hcache
+        packed = np.frombuffer(
+            b"".join(fps) if fp_block is None else fp_block, "<u4"
+        ).reshape(len(fps), flen // 4)
+        trows = self._tenant_rows.setdefault(t, {})
+        records = self._records
+        for i, (rid, fp) in enumerate(zip(rids, fps)):
+            trows[rid] = None
+            row = {
+                "modality": mod_value,
+                "algorithm": alg,
+                "config_hash": cfg,
+                "format_version": fmt,
+                "fingerprint": fp,
+                "embedding": embs[i] if embs is not None else None,
+                "model_id": model_id,
+                "metadata": meta,
+                "text": None,
+            }
+            if recs is not None:
+                r = recs[i]
+                row.update(modality=r.modality.value,
+                           config_hash=r.config_hash,
+                           format_version=r.format_version,
+                           fingerprint=r.fingerprint, model_id=r.model_id,
+                           metadata=r.metadata)
+            records[(t, rid)] = row
+        hcache.upsert_many(rids, packed)
+
+    def _apply_fp_rows(self, t: int, alg: str, rids: list[int],
+                       fps: list[bytes], flen: int, mod_value: str,
+                       cfg, fmt, *, meta: bytes = b"",
+                       fp_block: bytes | None = None, recs=None) -> None:
+        self._store_rows(t, alg, rids, fps, flen, mod_value, cfg, fmt, meta,
+                         None, None, recs, fp_block)
+
+    def _apply_emb_rows(self, t: int, alg: str, rids: list[int],
+                        fps: list[bytes], flen: int, mod_value: str,
+                        cfg, fmt, *, meta: bytes = b"",
+                        model_id: str | None = None,
+                        emb_mat: np.ndarray = None,
+                        fp_block: bytes | None = None, recs=None) -> None:
+        """_apply_fp_rows plus the vector cache (embeddings stored as f32
+        row views of emb_mat)."""
+        self._store_rows(t, alg, rids, fps, flen, mod_value, cfg, fmt, meta,
+                         model_id, emb_mat, recs, fp_block)
+        cache = self._vec.setdefault(
+            (t, emb_mat.shape[1]), _VecCache(emb_mat.shape[1]))
+        cache.upsert_many(
+            rids, emb_mat,
+            tag=(self._tag_code(alg), self._tag_code(model_id)),
+        )
+
+    @staticmethod
+    def _check_durability(wal) -> None:
+        """Refuse new writes while the WAL cannot commit."""
+        if wal is not None and getattr(wal, "degraded", False):
+            raise IngestError(
+                "write-ahead log durability failure: ingest refused until "
+                "a WAL fsync round succeeds (check disk space/health)"
+            )
+
+    async def delete(self, tenant_id: int, record_ids: list[int]) -> None:
+        wal = self._wal
+
+        def apply():
+            self._check_durability(wal)
+            with self._lock:
+                ticket = (wal.append_buffered(
+                    [{"op": "delete", "tenant_id": tenant_id,
+                      "record_ids": record_ids}]
+                ) if wal is not None else None)
+                for rid in record_ids:
+                    self._apply_delete(tenant_id, rid)
+            return ticket
+
+        ticket = await asyncio.to_thread(apply)
+        if ticket is not None:
+            await wal.wait_durable(ticket)
+
+    # -- device caches ------------------------------------------------------------
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        if arr.dtype == np.uint32:
+            arr = arr.view(np.int32)  # u32 bit patterns, int32 storage
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _device_valid(self, cap: int, n: int) -> torch.Tensor:
+        # built on the device: rows below n are live
+        return torch.arange(cap, device=self.device) < n
+
+    def _scatter_rows(self, m: torch.Tensor, ridx: list[int],
+                      vals: np.ndarray) -> torch.Tensor:
+        """Row patch IN PLACE (see module doc)."""
+        m[torch.as_tensor(ridx, device=self.device)] = self._to_device(vals)
+        return m
+
+    def _device_rows(self, cache: _RowCache) -> tuple:
+        """(matrix, valid) on the device — the reference's _device_vec
+        and _device_ham, which share this rule: full upload on first
+        build or capacity growth, otherwise only the rows touched since
+        the last sync."""
+        cap = cache.data.shape[0]
+        if cache.dirty or cache.device is None:
+            cache.device = (self._to_device(cache.data),
+                            self._device_valid(cap, cache.n))
+            cache.dirty = False
+            cache.pending = []
+        elif cache.pending:
+            rows = sorted(set(cache.pending))
+            m, _v = cache.device
+            cache.device = (self._scatter_rows(m, rows, cache.data[rows]),
+                            self._device_valid(cap, cache.n))
+            cache.pending = []
+        return cache.device
+
+    @staticmethod
+    def _fused_pool_ok(cap: int, n: int, k: int) -> bool:
+        """THE dispatch predicate for the fused candidate path — the query
+        paths and the approximate markers must agree."""
+        tile = fused_scan.ROWS_PER_TILE * fused_scan.LANES
+        n_candidates = (cap // tile) * fused_scan.LANES
+        return cap % tile == 0 and min(k, n) <= min(16, n_candidates)
+
+    def knn_is_approximate(self, tenant_id: int, dim: int, k: int,
+                           exact: bool = False) -> bool:
+        """True when a (dim, k) vector query rides the fused candidate
+        path (near-exact for k <= 16, exact top-1), so the serving layer
+        marks the response. Single and batched queries take the same path
+        (no quantized tiers here), so one marker serves both."""
+        if exact:
+            return False
+        cache = self._vec.get((tenant_id, dim))
+        if cache is None or cache.n == 0 or cache.data is None:
+            return False
+        return self._fused_pool_ok(cache.data.shape[0], cache.n,
+                                   min(k, cache.n))
+
+    def fingerprint_is_approximate(self, tenant_id: int, algorithm: str,
+                                   k: int) -> bool:
+        """Same marker for the fused Hamming serving path."""
+        cache = self._ham.get((tenant_id, algorithm))
+        if cache is None or cache.n == 0 or cache.data is None:
+            return False
+        if cache.width > fused_scan.MAX_FUSED_HAMMING_WORDS:
+            return False  # wide fingerprints serve the exact kernel
+        return self._fused_pool_ok(cache.data.shape[0], cache.n,
+                                   min(k, cache.n))
+
+    def _resolve(self, cache: _RowCache, gen_snap: int, rids_copy,
+                 idx: np.ndarray, keep: np.ndarray):
+        """Kernel row indices -> rids: {row: rid} for the kept entries,
+        or None when a delete moved rows since the snapshot (retry)."""
+        if rids_copy is not None:
+            return rids_copy
+        with self._lock:
+            if cache.gen != gen_snap:
+                return None
+            # gen unchanged => no row moved and the rid list only grew,
+            # so every kept index (< n_snap) names its snapshot record
+            return {int(i): cache.rids[int(i)]
+                    for i in idx.reshape(-1)[keep.reshape(-1)]}
+
+    def _snapshot(self, cache: _RowCache, attempt: int, last: int,
+                  flt_mask=True):
+        """Device tensors + (gen, rid copy on the final attempt, n), all
+        under the lock (see the reference's knn for why n and gen must be
+        read together)."""
+        dev = self._device_rows(cache)
+        if flt_mask is not True:
+            dev = (dev[0], dev[1] & torch.as_tensor(flt_mask, device=self.device))
+        rids_copy = list(cache.rids) if attempt == last else None
+        return dev, cache.gen, rids_copy, cache.n
+
+    async def knn(
+        self,
+        tenant_id: int,
+        query: list[float],
+        k: int,
+        filter: Optional[dict] = None,
+        pool_frac: Optional[float] = None,
+        exact: bool = False,
+    ) -> list[Hit]:
+        """Cosine top-k: empty query, k=0 or zero-norm query -> empty;
+        only vectors of matching dim. exact forces the exhaustive scan;
+        filter {"algorithm", "model_id"} masks rows on the device.
+        pool_frac only tunes quantized tiers, which this build lacks."""
+        if not query or k == 0:
+            return []
+        quantize_pool_frac(pool_frac)  # same ValueError as the reference
+        q = np.asarray(query, np.float32)
+        if float(np.linalg.norm(q)) == 0.0:
+            return []
+        from .backend import validate_filter
+
+        validate_filter(filter)  # bad shapes surface even on empty caches
+        cache = self._vec.get((tenant_id, len(query)))
+        if cache is None or cache.n == 0:
+            return []
+        res = await self._knn_rows(cache, q[None], k, filter, exact)
+        return res[0]
+
+    async def knn_batch(
+        self, tenant_id: int, queries: list[list[float]], k: int,
+        filter: Optional[dict] = None, exact: bool = False,
+    ) -> list[list[Hit]]:
+        """Batched cosine top-k: all queries share ONE device product.
+        Zero-norm queries get empty lists."""
+        if k == 0 or not queries:
+            return [[] for _ in queries]
+        dims = {len(q) for q in queries}
+        if len(dims) != 1:
+            from ..core import ModalityError
+
+            raise ModalityError("all queries in a batch must share one dim")
+        dim = dims.pop()
+        if dim == 0:
+            return [[] for _ in queries]
+        qm = np.asarray(queries, np.float32)
+        cache = self._vec.get((tenant_id, dim))
+        if cache is None or cache.n == 0:
+            return [[] for _ in queries]
+        if filter is not None:
+            from .backend import validate_filter
+
+            validate_filter(filter)
+        res = await self._knn_rows(cache, qm, k, filter, exact)
+        return [[] if float(np.linalg.norm(qm[row])) == 0.0 else hits
+                for row, hits in enumerate(res)]
+
+    async def _knn_rows(self, cache: _RowCache, qm: np.ndarray, k: int,
+                        filter: Optional[dict], exact: bool) -> list[list[Hit]]:
+        def work(_attempt=0, _last=2):
+            with self._lock:
+                # filter mask under the SAME lock as the device snapshot:
+                # a concurrent capacity doubling would change its length
+                flt_mask = (self._vector_filter_mask(cache, filter)
+                            if filter is not None else True)
+                if flt_mask is None:
+                    return [[] for _ in range(qm.shape[0])]
+                (matrix, valid), gen_snap, rids_copy, n_snap = self._snapshot(
+                    cache, _attempt, _last, flt_mask)
+            kk = min(k, n_snap)
+            qd = torch.from_numpy(qm).to(self.device)
+            if not exact and self._fused_pool_ok(matrix.shape[0], n_snap, kk):
+                scores, idx = knn_ops.cosine_topk_fused(qd, matrix, valid, kk)
+            else:
+                scores, idx = knn_ops.cosine_topk(qd, matrix, valid, kk)
+            scores = scores.cpu().numpy()
+            idx = idx.cpu().numpy()
+            keep = np.isfinite(scores)
+            rids = self._resolve(cache, gen_snap, rids_copy, idx, keep)
+            if rids is None:  # a delete moved rows: retry OUTSIDE the lock
+                return work(_attempt + 1)
+            out = []
+            for row in range(qm.shape[0]):
+                pairs = [(rids[int(i)], float(s))
+                         for s, i in zip(scores[row], idx[row]) if np.isfinite(s)]
+                # descending score, ties by ascending record id
+                pairs.sort(key=lambda t: (-t[1], t[0]))
+                out.append([Hit(record_id=r, score=s, source=HitSource.VECTOR)
+                            for r, s in pairs])
+            return out
+
+        return await asyncio.to_thread(work)
+
+    async def knn_fingerprint(
+        self, tenant_id: int, algorithm: str, fingerprint: bytes, k: int
+    ) -> list[Hit]:
+        """Hamming top-k over packed stored fingerprints; score =
+        1 - dist/bits so larger is better."""
+        if k == 0 or not fingerprint:
+            return []
+        res = await self.knn_fingerprint_batch(tenant_id, algorithm,
+                                               [fingerprint], k)
+        return res[0]
+
+    def _pack_queries(self, fingerprints: list[bytes], width: int,
+                      nbytes: int | None = None):
+        """[Q, width] u32 query words + per-row ok flags (width- or
+        length-mismatched rows become zeros and get empty results)."""
+        packs, ok_rows = [], []
+        for fp in fingerprints:
+            p = (np.asarray(knn_ops.pack_bits_to_u32(fp), np.uint32)
+                 if fp else np.zeros(0, np.uint32))
+            ok = bool(fp) and (len(fp) == nbytes if nbytes is not None
+                               else len(p) == width)
+            packs.append(p if ok else np.zeros(width, np.uint32))
+            ok_rows.append(ok)
+        return np.stack(packs), ok_rows
+
+    async def knn_fingerprint_batch(
+        self, tenant_id: int, algorithm: str, fingerprints: list[bytes], k: int
+    ) -> list[list[Hit]]:
+        """Batched Hamming top-k: all queries share ONE device dispatch.
+        Width-mismatched or empty fingerprints return an empty hit list
+        at their position."""
+        if k == 0 or not fingerprints:
+            return [[] for _ in fingerprints]
+        cache = self._ham.get((tenant_id, algorithm))
+        if cache is None or cache.n == 0:
+            return [[] for _ in fingerprints]
+        qm, ok_rows = self._pack_queries(fingerprints, cache.width)
+        if not any(ok_rows):
+            return [[] for _ in fingerprints]
+
+        def work(_attempt=0, _last=2):
+            with self._lock:
+                (matrix, valid), gen_snap, rids_copy, n_snap = self._snapshot(
+                    cache, _attempt, _last)
+            kk = min(k, n_snap)
+            qd = self._to_device(qm)
+            if (self._fused_pool_ok(matrix.shape[0], n_snap, kk)
+                    and cache.width <= fused_scan.MAX_FUSED_HAMMING_WORDS):
+                dist, idx = fused_scan.hamming_topk_fused_batched(
+                    qd, matrix, valid, kk)
+            else:
+                dist, idx = knn_ops.hamming_topk(qd, matrix, valid, kk)
+            dist = dist.cpu().numpy()
+            idx = idx.cpu().numpy()
+            keep = dist < 2**30  # masked rows surface as 2^30 / 2^31-1
+            rids = self._resolve(cache, gen_snap, rids_copy, idx, keep)
+            if rids is None:
+                return work(_attempt + 1)
+            bits = cache.width * 32
+            res: list[list[Hit]] = []
+            for row in range(qm.shape[0]):
+                if not ok_rows[row]:
+                    res.append([])
+                    continue
+                out = [(rids[int(i)], int(d))
+                       for d, i in zip(dist[row], idx[row]) if d < 2**30]
+                out.sort(key=lambda t: (t[1], t[0]))
+                res.append([Hit(record_id=rid, score=1.0 - d / bits,
+                                source=HitSource.VECTOR) for rid, d in out])
+            return res
+
+        return await asyncio.to_thread(work)
+
+    async def knn_multihash(
+        self, tenant_id: int, fingerprints: list[bytes], k: int,
+        weights: Optional[dict] = None,
+    ) -> list[list[Hit]]:
+        """Weighted multi-hash comparison over stored 536-byte bundles:
+        three 64-bit Hamming terms, histogram L1 and the fraction of 4x4
+        blocks within block_distance_threshold, weighted (defaults
+        0.4/.3/.1/.1/.1). One batched device dispatch."""
+        from ..modality.image import ALGORITHM_MULTI
+        from ..ops import imagehash as ih
+
+        if k == 0 or not fingerprints:
+            return [[] for _ in fingerprints]
+        cache = self._ham.get((tenant_id, ALGORITHM_MULTI))
+        if cache is None or cache.n == 0 or cache.width != ih.MULTIHASH_WORDS:
+            return [[] for _ in fingerprints]
+        qm, ok_rows = self._pack_queries(fingerprints, ih.MULTIHASH_WORDS,
+                                         nbytes=ih.MULTIHASH_BYTES)
+        if not any(ok_rows):
+            return [[] for _ in fingerprints]
+        params = torch.from_numpy(ih.multihash_params(weights)).to(self.device)
+
+        def work(_attempt=0, _last=2):
+            with self._lock:
+                (matrix, valid), gen_snap, rids_copy, n_snap = self._snapshot(
+                    cache, _attempt, _last)
+            kk = min(k, n_snap)
+            scores, idx = ih.multihash_weighted_topk(
+                self._to_device(qm), matrix, valid, params, kk)
+            scores = scores.cpu().numpy()
+            idx = idx.cpu().numpy()
+            keep = np.isfinite(scores)
+            rids = self._resolve(cache, gen_snap, rids_copy, idx, keep)
+            if rids is None:
+                return work(_attempt + 1)
+            res: list[list[Hit]] = []
+            for row in range(qm.shape[0]):
+                if not ok_rows[row]:
+                    res.append([])
+                    continue
+                out = [(rids[int(i)], float(s))
+                       for s, i in zip(scores[row], idx[row]) if np.isfinite(s)]
+                out.sort(key=lambda t: (-t[1], t[0]))
+                res.append([Hit(record_id=rid, score=s, source=HitSource.VECTOR)
+                            for rid, s in out])
+            return res
+
+        return await asyncio.to_thread(work)
+
+    async def bm25(self, tenant_id: int, terms: list[str], k: int) -> list[Hit]:
+        raise UnsupportedError("BM25 term search is not served by this build yet")
+
+    async def flush(self) -> None:
+        wal = self._wal  # snapshot vs concurrent close()
+        if wal is not None:
+            await wal.wait_durable(wal.append_buffered([]))
+
+    async def get_record_metadata(
+        self, tenant_id: int, record_id: int
+    ) -> FingerprintMeta:
+        row = self._records.get((tenant_id, record_id))
+        if row is None:
+            raise RecordNotFound(f"record {tenant_id}/{record_id} not found")
+        return FingerprintMeta(
+            tenant_id=tenant_id,
+            record_id=record_id,
+            modality=Modality(row["modality"]),
+            algorithm=row["algorithm"],
+            config_hash=row["config_hash"],
+            format_version=row["format_version"],
+            fingerprint_bytes=len(row["fingerprint"]),
+            has_embedding=row["embedding"] is not None,
+            model_id=row["model_id"],
+        )
+
+    def list_records(self, tenant_id: int, offset: int = 0,
+                     limit: int = 50) -> tuple[list[dict], int]:
+        """Paginated per-tenant listing in insertion order ->
+        ([{record_id, modality, algorithm, fingerprint_bytes,
+        has_embedding}], total)."""
+        with self._lock:
+            rows = self._tenant_rows.get(tenant_id, {})
+            total = len(rows)
+            ids = list(itertools.islice(rows.keys(), offset, offset + limit))
+            out = []
+            for rid in ids:
+                row = self._records[(tenant_id, rid)]
+                out.append({
+                    "record_id": rid,
+                    "modality": row["modality"],
+                    "algorithm": row["algorithm"],
+                    "fingerprint_bytes": len(row["fingerprint"]),
+                    "has_embedding": row["embedding"] is not None,
+                })
+        return out, total
+
+    def get_record(self, tenant_id: int, record_id: int) -> dict:
+        row = self._records.get((tenant_id, record_id))
+        if row is None:
+            raise RecordNotFound(f"record {tenant_id}/{record_id} not found")
+        return row
+
+    def close(self) -> None:
+        if self._wal is not None:
+            self._wal.close()
+            self._wal = None

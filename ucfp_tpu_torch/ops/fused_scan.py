@@ -1,0 +1,283 @@
+"""Fused per-(tile, lane) candidate top-k scans (port of ucfp_tpu/ops/pallas_scan.py).
+
+Candidate-set semantics, identical to the reference: the catalog is
+viewed as [rows, 128] lanes; each tile keeps its best row PER LANE (ties:
+the lowest row), and the final top-k selects across tiles x lanes. Exact
+for k=1; for small k two true top-k entries collide in one (tile, lane)
+cell with probability ~k^2/(2*tiles*128). Callers mark such responses
+approximate.
+
+Kernels (CUDA C++ for sm_90a, csrc/fused_scan.cu):
+  * scores_topk_fused_batched  — per-cell argbest over precomputed
+    scores, tiles of ROWS_PER_TILE=256 rows x 128 lanes;
+  * hamming_topk_fused_batched — fused XOR-popcount + per-cell argmin,
+    tiles of ROWS_PER_TILE//2=128 rows x 128 lanes, QSEL queries per
+    block so each catalog row is read once per query block.
+
+The final selection runs over the flat candidate array in the order
+t*128 + lane (the reference's moveaxis/reshape order, NOT global row
+order) with a stable sort, so ties keep the lower position exactly as
+lax.top_k does. Beside each kernel sits its plain PyTorch version
+(`*_plain`): the CPU path, and the yardstick the card's kernel is held
+bit-equal to. A wrapper takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+LANES = 128
+ROWS_PER_TILE = 256  # scores tile: ROWS_PER_TILE * 128 catalog rows
+HAMMING_ROWS_PER_TILE = ROWS_PER_TILE // 2  # Hamming tile: 128 * 128 rows
+QSEL = 8  # queries per Hamming block: one catalog read serves 8 queries
+# widest fingerprint (u32 words) the fused Hamming kernel takes; wider
+# fingerprints ride the exact ops.knn.hamming_topk path
+MAX_FUSED_HAMMING_WORDS = 16
+_INVALID_DIST = 1 << 30
+
+#: kernel launches since the last reset_launch_counts(), by wrapper name
+LAUNCHES = {"scores_topk_fused_batched": 0, "hamming_topk_fused_batched": 0}
+_count_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+_lib = None
+
+
+def _kernels():
+    """The built kernel library with its ctypes signatures (first call
+    builds csrc/*.cu; a failed build raises)."""
+    global _lib
+    if _lib is None:
+        from .._build import kernel_library
+
+        lib = kernel_library()
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ucfp_scores_cells.restype = i
+        lib.ucfp_scores_cells.argtypes = [p, i, i, i, ll, p, p, p]
+        lib.ucfp_hamming_cells.restype = i
+        lib.ucfp_hamming_cells.argtypes = [p, i, i, p, p, ll, p, p, p]
+        _lib = lib
+    return _lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
+
+
+def _stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# cells: [Q, tiles * 128] best value + flat catalog index per (tile, lane)
+# ---------------------------------------------------------------------------
+
+
+def _scores_cells_plain(scores: torch.Tensor, largest: bool):
+    """_qblock_argbest literally: max (or min) per cell, then the smallest
+    row among the hits; the value is the winning row's own element."""
+    q, c = scores.shape
+    tiles = c // (ROWS_PER_TILE * LANES)
+    s4 = scores.reshape(q, tiles, ROWS_PER_TILE, LANES)
+    f = s4.float()
+    best = f.amax(dim=2) if largest else f.amin(dim=2)
+    rows = torch.arange(ROWS_PER_TILE, device=scores.device).view(1, 1, -1, 1)
+    first = torch.where(f == best[:, :, None, :], rows,
+                        ROWS_PER_TILE).amin(dim=2)  # [Q, T, 128]
+    val = torch.gather(s4, 2, first[:, :, None, :]).squeeze(2)
+    t_ix = torch.arange(tiles, device=scores.device).view(1, -1, 1)
+    lanes = torch.arange(LANES, device=scores.device).view(1, 1, -1)
+    gidx = (t_ix * ROWS_PER_TILE + first) * LANES + lanes
+    return val.reshape(q, -1), gidx.to(torch.int32).reshape(q, -1)
+
+
+def _scores_cells_cuda(scores: torch.Tensor, largest: bool):
+    q, c = scores.shape
+    if not scores.is_contiguous():
+        raise ValueError("scores must be contiguous")
+    tiles = c // (ROWS_PER_TILE * LANES)
+    best = torch.empty((q, tiles * LANES), dtype=scores.dtype, device=scores.device)
+    gidx = torch.empty((q, tiles * LANES), dtype=torch.int32, device=scores.device)
+    rc = _kernels().ucfp_scores_cells(
+        scores.data_ptr(), int(scores.dtype == torch.bfloat16), int(largest),
+        q, c, best.data_ptr(), gidx.data_ptr(), _stream_ptr(scores),
+    )
+    _check(rc, "scores_topk_fused_batched")
+    _count("scores_topk_fused_batched")
+    return best, gidx
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of u32 bit patterns held in int32, computed in int64
+    (the final multiply overflows int32)."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def _hamming_cells_plain(queries: torch.Tensor, db: torch.Tensor,
+                         valid: torch.Tensor):
+    """Per query block of QSEL: XOR-popcount over the words, invalid rows
+    2^30, then min per cell and the smallest row among the hits."""
+    q, w = queries.shape
+    c = db.shape[0]
+    tiles = c // (HAMMING_ROWS_PER_TILE * LANES)
+    dev = db.device
+    rows = torch.arange(HAMMING_ROWS_PER_TILE, device=dev).view(1, 1, -1, 1)
+    t_ix = torch.arange(tiles, device=dev).view(1, -1, 1)
+    lanes = torch.arange(LANES, device=dev).view(1, 1, -1)
+    vals, idxs = [], []
+    for q0 in range(0, q, QSEL):
+        qb = queries[q0:q0 + QSEL]
+        d = torch.zeros((qb.shape[0], c), dtype=torch.int64, device=dev)
+        for wi in range(w):
+            d += _popcount32(torch.bitwise_xor(qb[:, wi, None], db[None, :, wi]))
+        d = torch.where(valid[None, :], d, _INVALID_DIST)
+        d4 = d.view(qb.shape[0], tiles, HAMMING_ROWS_PER_TILE, LANES)
+        best = d4.amin(dim=2)
+        first = torch.where(d4 == best[:, :, None, :], rows,
+                            HAMMING_ROWS_PER_TILE).amin(dim=2)
+        vals.append(best.to(torch.int32).reshape(qb.shape[0], -1))
+        gidx = (t_ix * HAMMING_ROWS_PER_TILE + first) * LANES + lanes
+        idxs.append(gidx.to(torch.int32).reshape(qb.shape[0], -1))
+    return torch.cat(vals), torch.cat(idxs)
+
+
+def _hamming_cells_cuda(queries: torch.Tensor, db: torch.Tensor,
+                        valid: torch.Tensor):
+    q, w = queries.shape
+    c = db.shape[0]
+    for name, t in (("queries", queries), ("db", db), ("valid", valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != db.device:
+            raise ValueError(f"{name} must be on {db.device}")
+    if db.data_ptr() % 16:
+        raise ValueError("db must be 16-byte aligned (vector row loads)")
+    tiles = c // (HAMMING_ROWS_PER_TILE * LANES)
+    dist = torch.empty((q, tiles * LANES), dtype=torch.int32, device=db.device)
+    gidx = torch.empty((q, tiles * LANES), dtype=torch.int32, device=db.device)
+    rc = _kernels().ucfp_hamming_cells(
+        queries.data_ptr(), q, w, db.data_ptr(), valid.data_ptr(), c,
+        dist.data_ptr(), gidx.data_ptr(), _stream_ptr(db),
+    )
+    _check(rc, "hamming_topk_fused_batched")
+    _count("hamming_topk_fused_batched")
+    return dist, gidx
+
+
+# ---------------------------------------------------------------------------
+# final selection (lax.top_k over the flat candidates, outside the kernels)
+# ---------------------------------------------------------------------------
+
+
+def _select(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
+    """First k of a stable sort: ties keep the lower candidate position,
+    as lax.top_k does (torch.topk promises no order for ties)."""
+    if k > vals.shape[1]:
+        raise ValueError(f"k={k} exceeds the {vals.shape[1]} candidates")
+    key = vals.float() if vals.dtype == torch.bfloat16 else vals
+    order = torch.sort(key, dim=1, descending=largest, stable=True).indices[:, :k]
+    return torch.gather(vals, 1, order), torch.gather(gidx, 1, order)
+
+
+def _check_scores(scores: torch.Tensor, largest: bool, approx: bool) -> None:
+    if approx and not largest:
+        raise ValueError("approx selection supports largest=True only")
+    if scores.dim() != 2:
+        raise ValueError(f"scores must be [Q, C], got {tuple(scores.shape)}")
+    if scores.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"scores must be float32 or bfloat16, got {scores.dtype}")
+    c = scores.shape[1]
+    if c % (ROWS_PER_TILE * LANES):
+        raise ValueError(
+            f"scores_topk_fused_batched requires C % {ROWS_PER_TILE * LANES}"
+            f" == 0, got {c}"
+        )
+
+
+def scores_topk_fused_batched(scores: torch.Tensor, k: int,
+                              largest: bool = True, approx: bool = False):
+    """scores [Q, C] f32 or bf16, C % 32768 == 0 -> ([Q, k] values in the
+    input dtype, [Q, k] int32 catalog indices), best first.
+
+    approx=True selects exactly: the reference's approx_max_k returns the
+    exact top-k on the CPU, and the port keeps that answer everywhere."""
+    _check_scores(scores, largest, approx)
+    if scores.device.type == "cpu":
+        vals, gidx = _scores_cells_plain(scores, largest)
+    else:
+        vals, gidx = _scores_cells_cuda(scores, largest)
+    return _select(vals, gidx, k, largest)
+
+
+def scores_topk_fused_batched_plain(scores: torch.Tensor, k: int,
+                                    largest: bool = True, approx: bool = False):
+    """Plain PyTorch version of scores_topk_fused_batched on any device."""
+    _check_scores(scores, largest, approx)
+    vals, gidx = _scores_cells_plain(scores, largest)
+    return _select(vals, gidx, k, largest)
+
+
+def _check_hamming(queries: torch.Tensor, db: torch.Tensor,
+                   valid: torch.Tensor) -> None:
+    if queries.dim() != 2 or db.dim() != 2 or queries.shape[1] != db.shape[1]:
+        raise ValueError(
+            f"queries [Q, W] and db [C, W] must share W, got "
+            f"{tuple(queries.shape)} and {tuple(db.shape)}"
+        )
+    if queries.dtype != torch.int32 or db.dtype != torch.int32:
+        raise ValueError("queries and db hold u32 bit patterns as int32")
+    if valid.dtype != torch.bool or valid.shape != (db.shape[0],):
+        raise ValueError("valid must be a [C] bool tensor")
+    w = db.shape[1]
+    if w > MAX_FUSED_HAMMING_WORDS:
+        raise ValueError(
+            f"fused Hamming scan takes at most {MAX_FUSED_HAMMING_WORDS} "
+            f"words, got {w} (wider fingerprints take the exact path)"
+        )
+    c = db.shape[0]
+    if c % (ROWS_PER_TILE * LANES):
+        raise ValueError(
+            f"hamming_topk_fused_batched requires C % {ROWS_PER_TILE * LANES}"
+            f" == 0, got {c}"
+        )
+
+
+def hamming_topk_fused_batched(queries: torch.Tensor, db: torch.Tensor,
+                               valid: torch.Tensor, k: int):
+    """queries [Q, W] int32 (u32 bits), db [C, W] int32, valid [C] bool,
+    C % 32768 == 0, W <= 16 -> ([Q, k] int32 distances, [Q, k] int32
+    catalog indices), smallest first; invalid rows score 2^30."""
+    _check_hamming(queries, db, valid)
+    if db.device.type == "cpu":
+        dist, gidx = _hamming_cells_plain(queries, db, valid)
+    else:
+        dist, gidx = _hamming_cells_cuda(queries, db, valid)
+    return _select(dist, gidx, k, largest=False)
+
+
+def hamming_topk_fused_batched_plain(queries: torch.Tensor, db: torch.Tensor,
+                                     valid: torch.Tensor, k: int):
+    """Plain PyTorch version of hamming_topk_fused_batched on any device."""
+    _check_hamming(queries, db, valid)
+    dist, gidx = _hamming_cells_plain(queries, db, valid)
+    return _select(dist, gidx, k, largest=False)
