@@ -9,27 +9,42 @@ each:
 
   1. device       the card's name and power limit (nvidia-smi)
   2. build        csrc/*.cu for sm_90a, and the build time
-  3. kernels      every CUDA kernel of the served path against its plain
+  3. kernels      every CUDA kernel of the served paths against its plain
                   PyTorch version on the card, at the served shapes and at
                   tie-heavy shapes: values and indices bit-equal. Kernel,
                   plain and library times (CUDA events, median of 25 runs)
-                  and the bound for the same work
+                  and the bound for the same work; the int8 product
+                  (torch._int_mm) held exact, its shape rules and its time
   4. conformance  the image hashes computed on the card against
                   tests/goldens/conformance.json
   5. served       the port's EmbeddedBackend on the card, bulk-loaded with
                   2^23 pHash fingerprints, 2^20 multi bundles and
                   2^20 x 768 f32 vectors, served over loopback HTTP in this
                   process: image ingest (single and batch), the five query
-                  forms, describe, delete. Each served answer is checked
-                  against the plain path on the same device tensors, and
-                  every kernel's launch count must rise during this phase
+                  forms, describe, delete
+  6. int8         an EmbeddedBackend with knn_quant="int8" holding
+                  2^22 x 768 vectors under two model ids, served over
+                  loopback HTTP: vector, vectors x32, each with and without
+                  a filter, and the exact tier; an upsert (the int8 row
+                  patch), a query that finds it, a delete
+  7. qbatch       UCFP_QUERY_BATCH_MS=2 on an int8 store of 2^20 x 768
+                  vectors and 2^20 pHash rows: 32 client threads send 64
+                  single vector and 64 single fingerprint_hex requests at
+                  once; every answer equals the unbatched one and the
+                  flushes are fewer than the requests
 
-Then one JSON line with every kernel's numbers, and last the line
-{"ok": true, "device": {...}}.
+In phases 5-7 every served answer is checked against the plain path on
+the same device tensors (or, in phase 7, against the unbatched answer),
+and the launch count of every kernel that the phase's path runs must
+rise between a reset just before the phase's requests and a read just
+after. Then one JSON line with every kernel's numbers (launches summed
+over phases 5-7), and last the line {"ok": true, "device": {...}}.
+--phases picks a subset (default: all seven).
 """
 
 import argparse
 import asyncio
+import contextlib
 import http.client
 import io
 import json
@@ -53,6 +68,10 @@ HBM_BYTES_PER_S = 3.35e12
 # maximum SM clock, both read in this run.
 ALU_PER_CLK_SM = 64
 POPC_PER_CLK_SM = 16
+# NVIDIA H100 SXM data sheet, dense, at 700 W: float32 outside the tensor
+# cores, and int8 on the tensor cores
+F32_OPS_PER_S = 67e12
+INT8_MMA_OPS_PER_S = 1979e12
 RUNS = 25  # CUDA-event samples per kernel timing
 
 # the served catalogs (phase 5) and the timed requests per query form
@@ -61,6 +80,17 @@ MULTI_ROWS = 1 << 20
 VEC_ROWS = 1 << 20
 DIM = 768  # the BASELINE image-embedding width
 SERVED_REPS = 20
+# phase 6: the README's int8 cosine 10M x 768 BASELINE, cut to 2^22 rows:
+# at 2^23 the bulk load met the 96 GiB host limit (PERF.md, Cells)
+INT8_ROWS = 1 << 22
+# phase 3 holds the int8 kernels at the served width and at 2^23 rows
+INT8_KERNEL_ROWS = (INT8_ROWS, 1 << 23)
+# phase 7: micro-batching, on catalogs small enough to keep the run short
+QBATCH_VEC_ROWS = 1 << 20
+QBATCH_PHASH_ROWS = 1 << 20
+QBATCH_MS = 2
+QBATCH_CLIENTS = 32
+QBATCH_REQUESTS = 64  # per form (vector, fingerprint_hex)
 
 PHASH = "imgfprint-phash-v1"
 MULTI = "imgfprint-multi-v1"
@@ -93,15 +123,19 @@ def time_ms(torch, fn, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(card: dict, nbytes: float, alu_ops: float,
-             popc_ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(card: dict, nbytes: float, alu_ops: float = 0.0,
+             popc_ops: float = 0.0, f32_ops: float = 0.0,
+             int8_mma_ops: float = 0.0) -> tuple[float, str]:
     """The larger of the bytes over the HBM rate and the operations over
-    the card's issue rate; the ALU and popcount pipes issue side by side,
-    so the busier of the two sets the operations' time."""
+    the card's rate for their type; the ALU, popcount, float32 and tensor
+    core pipes run side by side, so the busiest sets the operations'
+    time."""
     clocks = card["sms"] * card["sm_clock_hz"]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(alu_ops / (ALU_PER_CLK_SM * clocks),
-                popc_ops / (POPC_PER_CLK_SM * clocks)) * 1e3
+                popc_ops / (POPC_PER_CLK_SM * clocks),
+                f32_ops / F32_OPS_PER_S,
+                int8_mma_ops / INT8_MMA_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -249,9 +283,199 @@ def phase_kernels(torch, dev, card: dict) -> dict:
             "library_ms": None, "bound_ms": b, "bound_by": by,
             "kernel_bytes": -(-q // fs.QSEL) * c * (4 * w + 1),
         })
+    results.update(scores1=[], dots_norm=[], dots_norm_batched=[], int8_dots=[],
+                   int_mm_rules=[_int_mm_rules(torch, dev)])
+    for c in INT8_KERNEL_ROWS:
+        _kernels_int8(torch, dev, card, g, k, c, results)
     for name, rows in results.items():
         say(f"kernels/{name}: " + json.dumps(rows))
     return results
+
+
+def int8_dots_plain(torch, qq, q8m, rows: int = 1 << 20):
+    """The int8 product's plain version on the card, where an int32
+    matmul does not run: float32 products with TF32 off, in row chunks.
+    Exact for D <= 1040: every product and partial sum is an integer
+    below 127^2 * D < 2^24, which float32 holds in any order."""
+    q, d = qq.shape
+    check(d <= 1040, "plain int8 dots are exact for D <= 1040 only")
+    out = torch.empty((q, q8m.shape[0]), dtype=torch.int32, device=q8m.device)
+    qf = qq.float()
+    for lo in range(0, q8m.shape[0], rows):
+        out[:, lo:lo + rows] = (qf @ q8m[lo:lo + rows, :d].float().T).to(torch.int32)
+    return out
+
+
+def _int_mm_rules(torch, dev) -> dict:
+    """Which [M, K] x [K, N] shapes torch._int_mm takes on this card."""
+    from ucfp_tpu_torch.ops import knn
+
+    out = {}
+    m0 = knn.INT_MM_MIN_M
+    for m, kd, n in ((m0 - 1, 768, 1024), (m0, 768, 1024), (32, 772, 1024),
+                     (32, 768, 1020), (32, 768, INT8_ROWS)):
+        a = torch.zeros((m, kd), dtype=torch.int8, device=dev)
+        b = torch.zeros((n, kd), dtype=torch.int8, device=dev)
+        try:
+            torch._int_mm(a, b.T)
+            torch.cuda.synchronize()
+            out[f"{m}x{kd}x{n}"] = "ok"
+        except RuntimeError as e:
+            out[f"{m}x{kd}x{n}"] = str(e).splitlines()[0][:160]
+    check(out[f"{m0}x768x1024"] == "ok", f"torch._int_mm takes M={m0}: {out}")
+    return out
+
+
+def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> None:
+    """Kernels #3-#5 of the int8 tier against their plain versions, bit
+    for bit, at C catalog rows and at tie-heavy shapes; then the int8
+    product (a library call) against its plain version."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+    from ucfp_tpu_torch.ops import knn
+
+    tile = fs.ROWS_PER_TILE * fs.LANES
+    tiles = c // tile
+    dot_max = 127 * 127 * DIM
+
+    def dots_case(q, ties):
+        if ties:  # every dot and every norm equal
+            return (torch.full((q, c), 4321, dtype=torch.int32, device=dev),
+                    torch.full((c,), 5000.0, device=dev).sqrt(),
+                    torch.full((q,), 0.01, device=dev))
+        dots = torch.randint(-dot_max, dot_max + 1, (q, c), generator=g,
+                             device=dev, dtype=torch.int32)
+        rn = torch.randint(1, dot_max, (c,), generator=g, device=dev).float().sqrt()
+        rn[torch.rand(c, generator=g, device=dev) < 0.05] = 0.0  # zero-norm rows
+        for lo in (1000, c - 500):  # row 5 duplicated in its tile and the last
+            dots[:, lo:lo + 200] = dots[:, 5:6]
+            rn[lo:lo + 200] = rn[5]
+        inv_q = 1.0 / torch.randint(1, dot_max, (q,), generator=g,
+                                    device=dev).float().sqrt()
+        return dots.contiguous(), rn, inv_q
+
+    def dots_bound(q):
+        # dots and norms read once, the k best written; per dot one
+        # division and one product (float32) and one compare
+        return bound_ms(card, q * c * 4 + c * 4 + q * k * 8, alu_ops=q * c,
+                        f32_ops=2 * q * c)
+
+    # kernel #4: one query; n at C, below the last 1024 rows, mid-tile
+    for ties in (False, True):
+        dots, rn, inv_q = dots_case(1, ties)
+        d1 = dots[0]
+        for n in (c, c - 1024, c - 3 * tile - 12345):
+            cells_k = fs._dots_norm_cells_cuda(dots, rn, n, inv_q, "dots_norm_topk_fused")
+            torch.cuda.synchronize()
+            cells_p = fs._dots_norm_cells_plain(dots, rn, n, inv_q)
+            check(_same_bits(torch, cells_k[0], cells_p[0])
+                  and torch.equal(cells_k[1], cells_p[1]),
+                  f"dots-norm cells bit-equal q=1 n={n} ties={ties}")
+            vk, ik = fs.dots_norm_topk_fused(d1, rn, n, inv_q[0], k)
+            torch.cuda.synchronize()
+            vp, ip = fs.dots_norm_topk_fused_plain(d1, rn, n, inv_q[0], k)
+            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                  f"dots_norm_topk_fused bit-equal n={n} ties={ties}")
+            check(bool((ik[torch.isfinite(vk)] < n).all()), "no row beyond n")
+        b, by = dots_bound(1)
+        results["dots_norm"].append({
+            "q": 1, "c": c, "ties": ties, "max_abs_err": _max_abs(torch, vk, vp),
+            "ms": time_ms(torch, lambda: fs.dots_norm_topk_fused(d1, rn, c, inv_q[0], k)),
+            "cells_ms": time_ms(torch, lambda: fs._dots_norm_cells_cuda(
+                dots, rn, c, inv_q, "dots_norm_topk_fused")),
+            "plain_ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_plain(
+                d1, rn, c, inv_q[0], k)),
+            "library_ms": None, "bound_ms": b, "bound_by": by,
+        })
+        del dots, d1
+
+    # kernel #5: query blocks of 1 and 32 (four blocks of QSEL)
+    for q, ties in ((1, False), (32, False), (32, True)):
+        dots, rn, inv_q = dots_case(q, ties)
+        for n in (c, c - 1024):
+            cells_k = fs._dots_norm_cells_cuda(dots, rn, n, inv_q,
+                                               "dots_norm_topk_fused_batched")
+            torch.cuda.synchronize()
+            cells_p = fs._dots_norm_cells_plain(dots, rn, n, inv_q)
+            check(_same_bits(torch, cells_k[0], cells_p[0])
+                  and torch.equal(cells_k[1], cells_p[1]),
+                  f"dots-norm cells bit-equal q={q} n={n} ties={ties}")
+            del cells_k, cells_p
+            vk, ik = fs.dots_norm_topk_fused_batched(dots, rn, n, inv_q, k)
+            torch.cuda.synchronize()
+            vp, ip = fs.dots_norm_topk_fused_batched_plain(dots, rn, n, inv_q, k)
+            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                  f"dots_norm_topk_fused_batched bit-equal q={q} n={n} ties={ties}")
+        b, by = dots_bound(q)
+        results["dots_norm_batched"].append({
+            "q": q, "c": c, "ties": ties, "max_abs_err": _max_abs(torch, vk, vp),
+            "ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_batched(
+                dots, rn, c, inv_q, k)),
+            "cells_ms": time_ms(torch, lambda: fs._dots_norm_cells_cuda(
+                dots, rn, c, inv_q, "dots_norm_topk_fused_batched")),
+            "plain_ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_batched_plain(
+                dots, rn, c, inv_q, k)),
+            "library_ms": None, "bound_ms": b, "bound_by": by,
+        })
+        del dots
+
+    # kernel #3: one query's scores, largest and smallest first
+    for largest, ties in ((True, False), (False, False), (True, True), (False, True)):
+        if ties:
+            s = torch.zeros(c, device=dev)
+        else:
+            s = torch.randn(c, generator=g, device=dev)
+            s[1000:1300] = s[5]
+            s[c - 500:c - 300] = s[5]
+            s[-70000:-40000] = float("-inf") if largest else float("inf")
+        cells_k = fs._scores_cells_cuda(s[None], largest, "scores_topk_fused")
+        torch.cuda.synchronize()
+        cells_p = fs._scores_cells_plain(s[None], largest)
+        check(_same_bits(torch, cells_k[0], cells_p[0])
+              and torch.equal(cells_k[1], cells_p[1]),
+              f"scores cells bit-equal q=1 largest={largest} ties={ties}")
+        vk, ik = fs.scores_topk_fused(s, k, largest)
+        torch.cuda.synchronize()
+        vp, ip = fs.scores_topk_fused_plain(s, k, largest)
+        check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+              f"scores_topk_fused bit-equal largest={largest} ties={ties}")
+        b, by = bound_ms(card, c * 4 + k * 8, alu_ops=c)
+        lib = torch.max if largest else torch.min
+        results["scores1"].append({
+            "c": c, "largest": largest, "ties": ties,
+            "max_abs_err": _max_abs(torch, vk, vp),
+            "ms": time_ms(torch, lambda: fs.scores_topk_fused(s, k, largest)),
+            "cells_ms": time_ms(torch, lambda: fs._scores_cells_cuda(
+                s[None], largest, "scores_topk_fused")),
+            "plain_ms": time_ms(torch, lambda: fs.scores_topk_fused_plain(s, k, largest)),
+            "library_ms": time_ms(torch, lambda: lib(
+                s.view(tiles, fs.ROWS_PER_TILE, fs.LANES), dim=1)),
+            "bound_ms": b, "bound_by": by,
+        })
+
+    # the int8 product: torch._int_mm, held exact against its plain version
+    q8m = torch.randint(-127, 128, (c, knn.padded_dim(DIM)), generator=g,
+                        device=dev, dtype=torch.int8)
+    q8m[:2] = 127  # the largest products
+    for q in (1, 32):
+        qq = torch.randint(-127, 128, (q, DIM), generator=g, device=dev,
+                           dtype=torch.int8)
+        qq[0] = 127
+        got = knn.int8_dots(qq, q8m)
+        torch.cuda.synchronize()
+        check(torch.equal(got, int8_dots_plain(torch, qq, q8m)),
+              f"int8_dots exact q={q}")
+        del got
+        b, by = bound_ms(card, c * q8m.shape[1] + q * DIM + q * c * 4,
+                         int8_mma_ops=2 * q * c * DIM)
+        results["int8_dots"].append({
+            "q": q, "c": c, "d": DIM,
+            "route": f"torch._int_mm, M {q} -> {max(q, knn.INT_MM_MIN_M)}",
+            "ms": time_ms(torch, lambda: knn.int8_dots(qq, q8m)),
+            "plain_ms": time_ms(torch, lambda: int8_dots_plain(torch, qq, q8m)),
+            "bound_ms": b, "bound_by": by,
+        })
+    del q8m
+    torch.cuda.empty_cache()
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -357,10 +581,14 @@ def _bmp(arr) -> bytes:
     return buf.getvalue()
 
 
-def _bulk_load(torch, backend, n_phash, n_multi, n_vec, dim, seed, dev):
+def _bulk_load(torch, backend, n_phash, n_multi, n_vec, dim, seed, dev,
+               model_ids=("smoke",), vec_fp_bytes=None):
     """Chunked bulk load through the columnar batch upserts; the data is
     made on the card from `seed` (bundles are real multi hashes of random
-    32x32 images)."""
+    32x32 images). Vector chunks take the model ids in turn; each vector
+    row's fingerprint is its f32 bytes, or `vec_fp_bytes` random bytes
+    (an image record's 8-byte hash: a quarter of the host memory per
+    row, measured on the CPU)."""
     import numpy as np
 
     from ucfp_tpu_torch.ops import imagehash
@@ -394,9 +622,14 @@ def _bulk_load(torch, backend, n_phash, n_multi, n_vec, dim, seed, dev):
     for lo in range(0, n_vec, vchunk):
         m = min(vchunk, n_vec - lo)
         mat = torch.randn((m, dim), generator=g, device=dev).cpu().numpy()
+        fps = None
+        if vec_fp_bytes:
+            fps = [r.tobytes() for r in torch.randint(
+                0, 256, (m, vec_fp_bytes), generator=g, device=dev,
+                dtype=torch.uint8).cpu().numpy()]
         asyncio.run(backend.upsert_embedding_batch(
             0, SEM, list(range(2 * 10**8 + lo, 2 * 10**8 + lo + m)), mat,
-            model_id="smoke"))
+            fingerprints=fps, model_id=model_ids[(lo // vchunk) % len(model_ids)]))
     t_vec = time.perf_counter() - t0
     return {"phash_s": t_phash, "multi_s": t_multi, "vectors_s": t_vec}
 
@@ -577,7 +810,9 @@ def phase_served(torch, dev) -> dict:
               "deleted record no longer returned")
         launches = dict(fs.LAUNCHES)
         # ---- end of the main path
-        check(all(n > 0 for n in launches.values()), f"every kernel launched: {launches}")
+        check(all(launches[name] > 0 for name in ("scores_topk_fused_batched",
+                                                   "hamming_topk_fused_batched")),
+              f"every kernel of the f32 and Hamming paths launched: {launches}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         served = {
             "rows": {"phash": cache.n, "multi": backend._ham[(0, MULTI)].n,
@@ -590,25 +825,328 @@ def phase_served(torch, dev) -> dict:
             "batch_ingest_images_per_s": 64 / (statistics.median(batch_ms) / 1e3),
             "batch_ingest_ms": batch_ms,
             "launches": launches,
-            "peak_device_gib": peak,
+            "peak_device_gib": peak, "host_gib": host_gib(),
         }
         say("served: " + json.dumps(served))
         return served
     finally:
-        if server is not None:
-            server.stop()
-        backend.close()
-        import shutil
+        _close_backend(torch, server, backend, tmp)
 
-        shutil.rmtree(tmp, ignore_errors=True)
+
+# -- phase 6 ----------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _plain_int8_path(torch):
+    """The int8 path's kernels and its product swapped for their plain
+    versions, so the backend answers a query the plain way on the same
+    device tensors."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+    from ucfp_tpu_torch.ops import knn
+
+    swaps = {(knn, "int8_dots"): lambda qq, q8m: int8_dots_plain(torch, qq, q8m)}
+    for name in ("scores_topk_fused", "scores_topk_fused_batched",
+                 "dots_norm_topk_fused", "dots_norm_topk_fused_batched"):
+        swaps[(fs, name)] = getattr(fs, name + "_plain")
+    saved = {key: getattr(*key) for key in swaps}
+    try:
+        for (mod, name), fn in swaps.items():
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _served_rows(body: dict, res: dict) -> list:
+    """A /v1/query answer -> one [(record_id, score)] list per query."""
+    if "vector" in body:
+        return [_hit_rows(res["hits"])]
+    return [_hit_rows(r["hits"]) for r in res["results"]]
+
+
+def _plain_int8_rows(torch, backend, body: dict) -> list:
+    kw = {"filter": body.get("filter"), "exact": body.get("recall_tier") == "exact"}
+    with _plain_int8_path(torch):
+        if "vector" in body:
+            res = [asyncio.run(backend.knn(0, body["vector"], body["k"], **kw))]
+        else:
+            res = asyncio.run(backend.knn_batch(0, body["vectors"], body["k"], **kw))
+    return [[(h.record_id, h.score) for h in hits] for hits in res]
+
+
+def host_gib() -> dict:
+    """This process's resident host memory now and at its peak."""
+    import resource
+
+    now = int(open("/proc/self/statm").read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return {"rss": now / 2**30, "peak_rss": peak / 2**30}
+
+
+def _close_backend(torch, server, backend, tmp) -> None:
+    import gc
+    import shutil
+
+    if server is not None:
+        server.stop()
+    backend.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_int8(torch, dev) -> dict:
+    """The int8 tier served at the README's int8 shape cut to 2^22 rows:
+    the single and batched forms, filtered and not, and the exact tier,
+    each held against the plain path; an upsert (the int8 row patch), a
+    query that finds it and a delete."""
+    import numpy as np
+
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.ops import fused_scan as fs
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+
+    n = INT8_ROWS - 1024  # served upserts land below the loaded capacity
+    k = 10
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-int8-")
+    backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev, knn_quant="int8")
+    server = None
+    try:
+        load = _bulk_load(torch, backend, 0, 0, n, DIM, seed=8, dev=dev,
+                          model_ids=("m0", "m1"), vec_fp_bytes=8)
+        token = "smoke-token"
+        server = _ServerThread(ServerState(index=backend,
+                                           api_keys=StaticSingleKey(token)))
+        call = _Client(server.port, token)
+        vcache = backend._vec[(0, DIM)]
+        rng = np.random.default_rng(12)
+        picks = [int(x) for x in rng.integers(0, n, 32)]
+        vecs = [[float(x) for x in vcache.data[p] + rng.normal(0, 0.01, DIM)]
+                for p in picks]
+        want = [vcache.rids[p] for p in picks]
+        # bulk chunks of 2^15 rows alternate m0 / m1 (no deletes yet, so
+        # rows are in load order)
+        model = ["m0" if (p >> 15) % 2 == 0 else "m1" for p in picks]
+        base = {"tenant_id": 0, "modality": "image", "k": k}
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: launch counts are read over exactly this block
+        fs.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, res, _ = call("POST", "/v1/query", {**base, "vector": vecs[0]})
+        first_s = time.perf_counter() - t0  # builds the int8 device cache
+        check(st == 200, f"first int8 query: {st} {res}")
+        lat = {}
+
+        def served(form, body, reps=SERVED_REPS):
+            times = []
+            for _ in range(reps):
+                st, res, ms = call("POST", "/v1/query", body)
+                check(st == 200, f"{form}: {st} {res}")
+                times.append(ms)
+            lat[form] = statistics.median(times)
+            rows = _served_rows(body, res)
+            check(rows == _plain_int8_rows(torch, backend, body),
+                  f"{form} hits == plain path")
+            return res, rows
+
+        res, rows = served("vector", {**base, "vector": vecs[0]})
+        check(rows[0][0][0] == want[0] and res.get("approximate") is True,
+              "noisy stored vector at rank 1, marked approximate")
+        res, rows = served("vectors", {**base, "vectors": vecs})
+        check([r[0][0] for r in rows] == want, "32 noisy stored vectors at rank 1")
+        res, rows = served("vector_filter", {**base, "vector": vecs[0],
+                                             "filter": {"model_id": model[0]}})
+        check(rows[0][0][0] == want[0], "filtered: noisy stored vector at rank 1")
+        res, rows = served("vectors_filter", {**base, "vectors": vecs,
+                                              "filter": {"model_id": "m0"}})
+        check(all(r[0][0] == w for r, w, m in zip(rows, want, model) if m == "m0"),
+              "filtered batch: the m0 vectors at rank 1")
+        res, rows = served("vector_exact", {**base, "vector": vecs[0],
+                                            "recall_tier": "exact"})
+        check(rows[0][0][0] == want[0] and "approximate" not in res,
+              "exact tier: rank 1, not marked approximate")
+
+        # an upsert after the first query takes the int8 row patch
+        rid = 7 * 10**8
+        emb = rng.normal(0, 1, DIM)
+        st, res, _ = call("POST", "/v1/records", {"records": [{
+            "tenant_id": 0, "record_id": rid, "modality": "image",
+            "algorithm": SEM, "fingerprint": list(range(8)),
+            "embedding": [float(x) for x in emb], "model_id": "m1"}]})
+        check(st == 200, f"upsert: {st} {res}")
+        body = {**base, "vector": [float(x) for x in emb + rng.normal(0, 0.01, DIM)]}
+        st, res, _ = call("POST", "/v1/query", body)
+        check(st == 200 and res["hits"][0]["record_id"] == rid, "upserted vector at rank 1")
+        check(_served_rows(body, res) == _plain_int8_rows(torch, backend, body),
+              "after the row patch: hits == plain path")
+        st, _, _ = call("DELETE", f"/v1/records/0/{rid}")
+        check(st == 200, "delete")
+        st, res, _ = call("POST", "/v1/query", body)
+        check(st == 200 and all(h["record_id"] != rid for h in res["hits"]),
+              "deleted vector no longer returned")
+        launches = dict(fs.LAUNCHES)
+        # ---- end of the main path
+        check(all(launches[name] > 0 for name in (
+            "scores_topk_fused_batched", "scores_topk_fused",
+            "dots_norm_topk_fused", "dots_norm_topk_fused_batched")),
+            f"every kernel of the int8 path launched: {launches}")
+        out = {
+            "rows": vcache.n, "capacity": vcache.data.shape[0], "dim": DIM,
+            "load_s": load["vectors_s"], "first_query_s": first_s,
+            "p50_ms": lat, "launches": launches,
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "host_gib": host_gib(),
+        }
+        say("int8: " + json.dumps(out))
+        return out
+    finally:
+        _close_backend(torch, server, backend, tmp)
+
+
+# -- phase 7 ----------------------------------------------------------------
+
+
+def phase_qbatch(torch, dev) -> dict:
+    """Query micro-batching (UCFP_QUERY_BATCH_MS) under concurrent single
+    requests: vector queries coalesce onto kernel #5, fingerprint queries
+    onto kernel #2, and each answer equals the unbatched one."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.ops import fused_scan as fs
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+
+    n_vec, n_ph = QBATCH_VEC_ROWS - 1024, QBATCH_PHASH_ROWS - 1024
+    k = 10
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-qbatch-")
+    os.environ["UCFP_QUERY_BATCH_MS"] = str(QBATCH_MS)
+    try:
+        backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev,
+                                  knn_quant="int8")
+    finally:
+        del os.environ["UCFP_QUERY_BATCH_MS"]
+    server = None
+    clients = []
+    try:
+        check(backend._qbatch_ms == QBATCH_MS, "UCFP_QUERY_BATCH_MS read")
+        load = _bulk_load(torch, backend, n_ph, 0, n_vec, DIM, seed=9, dev=dev,
+                          vec_fp_bytes=8)
+        token = "smoke-token"
+        server = _ServerThread(ServerState(index=backend,
+                                           api_keys=StaticSingleKey(token)))
+        rng = np.random.default_rng(13)
+        vcache, hcache = backend._vec[(0, DIM)], backend._ham[(0, PHASH)]
+        base = {"tenant_id": 0, "modality": "image", "k": k}
+        vpicks = [int(x) for x in rng.integers(0, n_vec, QBATCH_REQUESTS)]
+        fpicks = [int(x) for x in rng.integers(0, n_ph, QBATCH_REQUESTS)]
+        bodies = []
+        for vp, fp in zip(vpicks, fpicks):
+            bodies.append({**base, "vector": [
+                float(x) for x in vcache.data[vp] + rng.normal(0, 0.01, DIM)]})
+            bodies.append({**base, "algorithm": "phash", "fingerprint_hex": backend.get_record(
+                0, hcache.rids[fp])["fingerprint"].hex()})
+        want = [r for pair in zip((vcache.rids[p] for p in vpicks),
+                                  (hcache.rids[p] for p in fpicks)) for r in pair]
+        local = threading.local()
+
+        def send(body):
+            if not hasattr(local, "call"):
+                local.call = _Client(server.port, token)
+                clients.append(local.call)
+            return local.call("POST", "/v1/query", body)
+
+        for body in bodies[:2]:  # build the device caches
+            check(send(body)[0] == 200, "warm-up query")
+
+        # ---- the main path: launch counts are read over exactly this block
+        fs.reset_launch_counts()
+        f0, i0 = backend._qbatch_flushes, backend._qbatch_items
+        with ThreadPoolExecutor(QBATCH_CLIENTS) as ex:
+            t0 = time.perf_counter()
+            got = list(ex.map(send, bodies))
+            wall = time.perf_counter() - t0
+        launches = dict(fs.LAUNCHES)
+        flushes = backend._qbatch_flushes - f0
+        items = backend._qbatch_items - i0
+        # ---- end of the main path
+        check(all(st == 200 for st, _, _ in got), "every batched request answered")
+        check([res["hits"][0]["record_id"] for _, res, _ in got] == want,
+              "every query finds its stored row at rank 1")
+        check(items == len(bodies) and flushes < len(bodies),
+              f"coalesced: {items} queries in {flushes} flushes")
+        check(launches["dots_norm_topk_fused_batched"] > 0
+              and launches["hamming_topk_fused_batched"] > 0
+              and launches["dots_norm_topk_fused"] == 0,
+              f"batched kernels only: {launches}")
+        backend._qbatch_ms = 0.0  # the same queries, one at a time
+        for body, (_, res, _) in zip(bodies, got):
+            st, res1, _ = send(body)
+            check(st == 200 and res1["hits"] == res["hits"],
+                  "micro-batched answer == unbatched answer")
+        out = {
+            "rows": {"vectors": vcache.n, "phash": hcache.n, "dim": DIM},
+            "load_s": load, "batch_ms": QBATCH_MS, "clients": QBATCH_CLIENTS,
+            "requests": len(bodies), "flushes": flushes,
+            "items_per_flush": items / flushes,
+            "requests_per_s": len(bodies) / wall, "launches": launches,
+            "host_gib": host_gib(),
+        }
+        say("qbatch: " + json.dumps(out))
+        return out
+    finally:
+        for c in clients:
+            c.conn.close()
+        _close_backend(torch, server, backend, tmp)
 
 
 # -- main ---------------------------------------------------------------------
 
 
+def _findings_line(kernels: dict, served: list) -> dict:
+    """One entry per ported kernel: its launches summed over the served
+    phases, and its numbers at the shape the served path gives it."""
+    launches = {}
+    for phase in served:
+        for name, n in phase["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+
+    def pick(rows, **want):
+        return next(r for r in rows if all(r[key] == v for key, v in want.items()))
+
+    rows = (
+        ("scores_topk_fused_batched", 487, "scores",
+         pick(kernels["scores"], q=32, dtype="float32", ties=False), {"q": 32}),
+        ("hamming_topk_fused_batched", 163, "hamming",
+         pick(kernels["hamming"], q=32, w=2, ties=False), {"q": 32, "w": 2}),
+        ("scores_topk_fused", 314, "scores1",
+         pick(kernels["scores1"], c=INT8_ROWS, largest=True, ties=False), {"q": 1}),
+        ("dots_norm_topk_fused", 261, "dots_norm",
+         pick(kernels["dots_norm"], c=INT8_ROWS, ties=False), {"q": 1}),
+        ("dots_norm_topk_fused_batched", 422, "dots_norm_batched",
+         pick(kernels["dots_norm_batched"], c=INT8_ROWS, q=32, ties=False), {"q": 32}),
+    )
+    return {"kernels": [
+        {"name": name, "route": "cuda",
+         "source": "ucfp_tpu_torch/csrc/fused_scan.cu",
+         "replaces": f"ucfp_tpu/ops/pallas_scan.py:{line}",
+         "launches": launches.get(name),
+         "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
+         **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shape": {**shape, "c": row["c"]}}
+        for name, line, key, row, shape in rows
+    ]}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="device,build,kernels,conformance,served")
+    p.add_argument("--phases",
+                   default="device,build,kernels,conformance,served,int8,qbatch")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -630,32 +1168,13 @@ def main() -> int:
     kernels = phase_kernels(torch, dev, card) if "kernels" in phases else None
     if "conformance" in phases:
         phase_conformance(dev)
-    served = phase_served(torch, dev) if "served" in phases else None
+    served = []
+    for name, phase in (("served", phase_served), ("int8", phase_int8),
+                        ("qbatch", phase_qbatch)):
+        if name in phases:
+            served.append(phase(torch, dev))
     if kernels is not None:
-        launches = served["launches"] if served else {}
-        main_scores = next(r for r in kernels["scores"]
-                           if r["q"] == 32 and r["dtype"] == "float32" and not r["ties"])
-        main_ham = next(r for r in kernels["hamming"]
-                        if r["q"] == 32 and r["w"] == 2 and not r["ties"])
-        line = {"kernels": [
-            {"name": "scores_topk_fused_batched", "route": "cuda",
-             "source": "ucfp_tpu_torch/csrc/fused_scan.cu",
-             "replaces": "ucfp_tpu/ops/pallas_scan.py:487",
-             "launches": launches.get("scores_topk_fused_batched"),
-             "max_abs_err": max(r["max_abs_err"] for r in kernels["scores"]),
-             **{key: main_scores[key] for key in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-             "shape": {"q": 32, "c": main_scores["c"], "dtype": "float32"}},
-            {"name": "hamming_topk_fused_batched", "route": "cuda",
-             "source": "ucfp_tpu_torch/csrc/fused_scan.cu",
-             "replaces": "ucfp_tpu/ops/pallas_scan.py:163",
-             "launches": launches.get("hamming_topk_fused_batched"),
-             "max_abs_err": max(r["max_abs_err"] for r in kernels["hamming"]),
-             **{key: main_ham[key] for key in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-             "shape": {"q": 32, "c": main_ham["c"], "w": 2}},
-        ]}
-        say(json.dumps(line))
+        say(json.dumps(_findings_line(kernels, served)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

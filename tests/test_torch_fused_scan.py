@@ -187,3 +187,156 @@ def test_popcount_matches_bin_count():
     got = fused_scan._popcount32(torch.from_numpy(x.view(np.int32))).numpy()
     want = np.array([bin(int(v)).count("1") for v in x])
     np.testing.assert_array_equal(got, want)
+
+
+# -- the int8 tier's kernels: #3 scores_topk_fused, #4 dots_norm_topk_fused,
+#    #5 dots_norm_topk_fused_batched. Their scores are one division and one
+#    product of exact float32 values (|dot| <= 127^2 * 768 < 2^24), each
+#    correctly rounded in XLA and in PyTorch, so values are bit-equal too.
+
+DOT_MAX = 127 * 127 * 768
+
+
+def _dots_case(c, q, seed, ties=False):
+    """int32 dots up to +-127^2*768, |int8 row| norms (sqrt of an integer,
+    5% zero-norm rows), float32 1/|q|; ties=True makes every dot and every
+    norm equal."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        dots = np.full((q, c), 4321, np.int32)
+        rn = np.full(c, np.sqrt(np.float32(5000)), np.float32)
+    else:
+        dots = rng.integers(-DOT_MAX, DOT_MAX + 1, (q, c)).astype(np.int32)
+        rn = np.sqrt(rng.integers(1, DOT_MAX, c).astype(np.float32))
+        rn[rng.random(c) < 0.05] = 0.0
+        # duplicated rows inside one tile and in another tile
+        dots[:, 1000:1300] = dots[:, 5:6]
+        rn[1000:1300] = rn[5]
+        dots[:, c - 500:c - 300] = dots[:, 5:6]
+        rn[c - 500:c - 300] = rn[5]
+    inv_q = (np.float32(1.0) / np.sqrt(
+        rng.integers(1, DOT_MAX, q).astype(np.float32))).astype(np.float32)
+    return dots, rn, inv_q
+
+
+def _n_values(c):
+    # the whole catalog, all but the last row, mid-tile, one row
+    return (c, c - 1, c - TILE // 2 - 77, 1)
+
+
+@pytest.mark.parametrize("c", [TILE, 2 * TILE])
+@pytest.mark.parametrize("q", [1, 3, 8, 11])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_dots_norm_batched_plain_matches_pallas(c, q, k):
+    dots, rn, inv_q = _dots_case(c, q, seed=c + 7 * q + k)
+    for n in _n_values(c):
+        v_ref, i_ref = pallas_scan.dots_norm_topk_fused_batched(
+            jnp.asarray(dots), jnp.asarray(rn), jnp.int32(n), jnp.asarray(inv_q), k)
+        v, i = fused_scan.dots_norm_topk_fused_batched(
+            torch.from_numpy(dots), torch.from_numpy(rn), n, torch.from_numpy(inv_q), k)
+        assert v.dtype == torch.float32 and i.dtype == torch.int32
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+        assert (i.numpy()[np.isfinite(v.numpy())] < n).all()
+
+
+@pytest.mark.parametrize("c", [TILE, 2 * TILE])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_dots_norm_single_plain_matches_pallas(c, k):
+    dots, rn, inv_q = _dots_case(c, 1, seed=c + k)
+    for n in _n_values(c):
+        v_ref, i_ref = pallas_scan.dots_norm_topk_fused(
+            jnp.asarray(dots[0]), jnp.asarray(rn), jnp.int32(n),
+            jnp.float32(inv_q[0]), k)
+        v, i = fused_scan.dots_norm_topk_fused(
+            torch.from_numpy(dots[0]), torch.from_numpy(rn), n, inv_q[0], k)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+        v2, i2 = fused_scan.dots_norm_topk_fused_plain(
+            torch.from_numpy(dots[0]), torch.from_numpy(rn), n, inv_q[0], k)
+        assert torch.equal(v, v2) and torch.equal(i, i2)
+
+
+@pytest.mark.parametrize("q", [1, 11])
+def test_dots_norm_ties_and_rows_beyond_n(q):
+    """Every dot and norm equal: the order is the candidate-position
+    order; rows beyond n and whole -inf cells keep their first row."""
+    c = 2 * TILE
+    dots, rn, inv_q = _dots_case(c, q, seed=q, ties=True)
+    for n in (c, 200, 1):
+        v_ref, i_ref = pallas_scan.dots_norm_topk_fused_batched(
+            jnp.asarray(dots), jnp.asarray(rn), jnp.int32(n), jnp.asarray(inv_q), 16)
+        v, i = fused_scan.dots_norm_topk_fused_batched(
+            torch.from_numpy(dots), torch.from_numpy(rn), n, torch.from_numpy(inv_q), 16)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    # n = 1: one finite candidate, then -inf cells in position order
+    assert i.numpy()[0].tolist() == list(range(16))
+    assert np.isneginf(v.numpy()[:, 1:]).all()
+
+
+@pytest.mark.parametrize("c", [TILE, 2 * TILE])
+@pytest.mark.parametrize("largest", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_scores_single_plain_matches_pallas(c, largest, k):
+    s = _scores_case(c, 1, seed=c + k + largest)[0]
+    v_ref, i_ref = pallas_scan.scores_topk_fused(jnp.asarray(s), k, largest)
+    v, i = fused_scan.scores_topk_fused(torch.from_numpy(s), k, largest)
+    assert v.shape == (k,) and i.dtype == torch.int32
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    v2, i2 = fused_scan.scores_topk_fused_plain(torch.from_numpy(s), k, largest)
+    assert torch.equal(v, v2) and torch.equal(i, i2)
+
+
+@pytest.mark.parametrize("largest", [True, False])
+def test_scores_single_ties(largest):
+    s = _scores_case(2 * TILE, 1, seed=5, zeros=True)[0]
+    v_ref, i_ref = pallas_scan.scores_topk_fused(jnp.asarray(s), 16, largest)
+    v, i = fused_scan.scores_topk_fused(torch.from_numpy(s), 16, largest)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    assert i.numpy().tolist() == list(range(16))
+
+
+def test_int8_kernel_error_cases():
+    rn = torch.ones(TILE + 128)
+    for fn, args, jfn, jargs in (
+        (fused_scan.scores_topk_fused, (torch.zeros(TILE + 128), 4),
+         pallas_scan.scores_topk_fused, (jnp.zeros(TILE + 128), 4)),
+        (fused_scan.dots_norm_topk_fused,
+         (torch.zeros(TILE + 128, dtype=torch.int32), rn, 5, 1.0, 4),
+         pallas_scan.dots_norm_topk_fused,
+         (jnp.zeros(TILE + 128, jnp.int32), jnp.ones(TILE + 128), 5, 1.0, 4)),
+        (fused_scan.dots_norm_topk_fused_batched,
+         (torch.zeros(2, TILE + 128, dtype=torch.int32), rn, 5, torch.ones(2), 4),
+         pallas_scan.dots_norm_topk_fused_batched,
+         (jnp.zeros((2, TILE + 128), jnp.int32), jnp.ones(TILE + 128), 5,
+          jnp.ones(2), 4)),
+    ):
+        # the reference's message, word for word
+        with pytest.raises(ValueError) as want:
+            jfn(*jargs)
+        with pytest.raises(ValueError) as got:
+            fn(*args)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="int32"):
+        fused_scan.dots_norm_topk_fused_batched(
+            torch.zeros(2, TILE), torch.ones(TILE), 5, torch.ones(2), 4)
+    with pytest.raises(ValueError, match="one per query"):
+        fused_scan.dots_norm_topk_fused_batched(
+            torch.zeros(2, TILE, dtype=torch.int32), torch.ones(TILE), 5,
+            torch.ones(3), 4)
+
+
+def test_int8_kernels_count_no_launch_on_cpu():
+    before = dict(fused_scan.LAUNCHES)
+    dots, rn, inv_q = _dots_case(TILE, 2, seed=1)
+    fused_scan.dots_norm_topk_fused_batched(
+        torch.from_numpy(dots), torch.from_numpy(rn), TILE, torch.from_numpy(inv_q), 4)
+    fused_scan.dots_norm_topk_fused(
+        torch.from_numpy(dots[0]), torch.from_numpy(rn), TILE, 0.5, 4)
+    fused_scan.scores_topk_fused(torch.zeros(TILE), 4)
+    assert fused_scan.LAUNCHES == before
+    assert {"scores_topk_fused", "dots_norm_topk_fused",
+            "dots_norm_topk_fused_batched"} <= set(before)

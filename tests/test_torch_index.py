@@ -8,12 +8,16 @@ exact paths) and at 32,768 (the fused candidate paths). Embeddings are
 small integers, so every f32 dot product and norm is exact in any
 summation order and the cosine scores are bit-equal too. A data
 directory written by ucfp_tpu reopens in the port with the same answers.
+The same holds under the int8 tier (knn_quant="int8"), and under query
+micro-batching (UCFP_QUERY_BATCH_MS > 0) coalesced answers equal
+unbatched ones.
 """
 
 import asyncio
 
 import numpy as np
 import pytest
+import torch
 
 from ucfp_tpu.core import Modality as JModality
 from ucfp_tpu.core import Record as JRecord
@@ -62,10 +66,11 @@ def bundles(n, rng):
 class Pair:
     """The same operations on a ucfp_tpu backend and a port backend."""
 
-    def __init__(self, tmp_path, engine):
-        self.j = JBackend(str(tmp_path / "jax"), wal_engine=engine)
+    def __init__(self, tmp_path, engine, quant=None):
+        self.j = JBackend(str(tmp_path / "jax"), wal_engine=engine,
+                          knn_quant=quant)
         self.t = EmbeddedBackend(str(tmp_path / "torch"), wal_engine=engine,
-                                 device="cpu")
+                                 device="cpu", knn_quant=quant)
 
     def both(self, name, *a, **kw):
         out = []
@@ -138,6 +143,8 @@ def check_queries(p: Pair, fps, emb, n):
         p.same("knn", 0, qv[1], k, filter={"model_id": "m1"})
         p.same("knn", 0, qv[1], k, exact=True)
         p.same("knn_batch", 0, qv + [[0.0] * DIM], k)
+        p.same("knn_batch", 0, qv, k, filter={"model_id": "m1"})
+        p.same("knn_batch", 0, qv, k, exact=True)
         p.same("knn_is_approximate", 0, DIM, k)
         # the batched marker: the port's single form answers for batches
         assert (p.j.knn_is_approximate(0, DIM, k, batch=True, batch_q=4)
@@ -214,10 +221,175 @@ def test_out_of_slice_writes_are_refused(tmp_path):
     t2.close()
 
 
-def test_quantized_tiers_are_refused(tmp_path, monkeypatch):
-    monkeypatch.setenv("UCFP_KNN_QUANT", "int8")
-    with pytest.raises(UnsupportedError, match="int8"):
+@pytest.mark.parametrize("mode", ["sketch", "int4", "int2"])
+def test_quantized_tiers_are_refused(tmp_path, monkeypatch, mode):
+    monkeypatch.setenv("UCFP_KNN_QUANT", mode)
+    with pytest.raises(UnsupportedError, match=mode):
         EmbeddedBackend(str(tmp_path), device="cpu")
+    with pytest.raises(UnsupportedError, match=mode):
+        EmbeddedBackend(str(tmp_path), device="cpu", knn_quant=mode)
+
+
+def test_int8_opens_and_serves(tmp_path, monkeypatch):
+    monkeypatch.setenv("UCFP_KNN_QUANT", "int8")
+    t = EmbeddedBackend(str(tmp_path), device="cpu")
+    try:
+        assert t.knn_quant == "int8"
+        emb = np.eye(4, dtype=np.float32) * 3
+        run(t.upsert_embedding_batch(0, SEM, [10, 11, 12, 13], emb))
+        got = run(t.knn(0, [0.0, 0.1, 2.0, 0.0], 2))
+        assert [h.record_id for h in got] == [12, 11]
+        assert t._vec[(0, 4)].device[0].dtype == torch.int8
+    finally:
+        t.close()
+
+
+def _int8_writes(p: Pair, n: int, seed: int):
+    """Small writes after the device cache exists (the row-patch path):
+    an update, new rows, deletes, then a batch that doubles capacity."""
+    rng = np.random.default_rng(seed)
+    p.both("upsert", [
+        dict(tenant_id=0, record_id=10**6 + 30, modality="image", algorithm=SEM,
+             fingerprint=b"\x00" * 4, model_id="m1",
+             embedding=[float(x) for x in rng.integers(-3, 4, DIM)]),
+        dict(tenant_id=0, record_id=4 * 10**6, modality="image", algorithm=SEM,
+             fingerprint=b"\x00" * 4, model_id="m2",
+             embedding=[float(x) for x in rng.integers(-3, 4, DIM)]),
+    ])
+    p.both("delete", 0, [10**6 + 8, 10**6 + n - 1])
+
+
+@pytest.mark.parametrize("n", [1500, 32768])
+def test_same_hits_int8(tmp_path, n):
+    p = Pair(tmp_path, "auto", quant="int8")
+    fps, emb = load(p, n, seed=n + 1)
+    check_queries(p, fps, emb, n)  # builds the int8 device caches
+    _int8_writes(p, n, seed=n)
+    check_queries(p, fps, emb, n)  # after the row patches
+    if n == 32768:
+        assert p.t.knn_is_approximate(0, DIM, 5)
+        # past the capacity: a full rebuild at twice the size
+        grow = np.random.default_rng(2).integers(-3, 4, (40, DIM)).astype(np.float32)
+        p.both("upsert_embedding_batch", 0, SEM,
+               list(range(5 * 10**6, 5 * 10**6 + 40)), grow,
+               modality="image", model_id="m1")
+        assert p.t._vec[(0, DIM)].data.shape[0] == 2 * n
+        check_queries(p, fps, emb, n)
+    p.close()
+
+
+def test_reference_data_dir_reopens_int8(tmp_path):
+    p = Pair(tmp_path, "auto", quant="int8")
+    fps, emb = load(p, 1200, seed=4)
+    p.close()
+    j = JBackend(str(tmp_path / "jax"), knn_quant="int8")
+    t = EmbeddedBackend(str(tmp_path / "jax"), device="cpu", knn_quant="int8")
+    try:
+        for k in (1, 7):
+            q = [list(map(float, emb[i] + 0.5)) for i in (0, 3, 99)]
+            assert hits(run(j.knn_batch(0, q, k))) == hits(run(t.knn_batch(0, q, k)))
+            assert hits(run(j.knn(0, q[2], k, filter={"model_id": "m1"}))) == \
+                hits(run(t.knn(0, q[2], k, filter={"model_id": "m1"})))
+    finally:
+        j.close()
+        t.close()
+
+
+# -- query micro-batching ---------------------------------------------------
+
+
+def _counting(b, name, sizes):
+    orig = getattr(b, name)
+
+    async def counting(tenant_id, *a, **kw):
+        sizes.append(len(a[-2]))  # (queries, k) or (algorithm, fps, k)
+        return await orig(tenant_id, *a, **kw)
+
+    setattr(b, name, counting)
+
+
+@pytest.mark.parametrize("quant,n", [("int8", 300), ("int8", 32768), ("none", 300)])
+def test_vector_queries_coalesce(tmp_path, monkeypatch, quant, n):
+    """Concurrent plain knn() calls share one knn_batch flush per
+    (tenant, dim, k) on both packages, with the unbatched answers;
+    filtered and exact queries bypass the batcher. The reference pads
+    the flush to a power of two, the port does not."""
+    monkeypatch.setenv("UCFP_QUERY_BATCH_MS", "25")
+    rng = np.random.default_rng(50)
+    vecs = rng.integers(-3, 4, (n, DIM)).astype(np.float32)
+    both = [JBackend(str(tmp_path / "j"), knn_quant=quant),
+            EmbeddedBackend(str(tmp_path / "t"), device="cpu", knn_quant=quant)]
+    monkeypatch.delenv("UCFP_QUERY_BATCH_MS")
+    plain = EmbeddedBackend(str(tmp_path / "p"), device="cpu", knn_quant=quant)
+    qs = [[float(x) for x in vecs[i] + rng.integers(-1, 2, DIM)]
+          for i in (3, 77, 150, 299, 8, 42)]
+    qs.append([0.0] * DIM)  # zero norm: [] before the batcher
+    answers, sizes = [], {}
+    try:
+        for b in both + [plain]:
+            run(b.upsert_embedding_batch(0, SEM, list(range(n)), vecs,
+                                         model_id="m1"))
+        for b in both:
+            assert b._qbatch_ms == 25.0
+            sizes[b] = []
+            _counting(b, "knn_batch", sizes[b])
+
+            async def go(b=b):
+                return await asyncio.gather(*[b.knn(0, q, 5) for q in qs])
+
+            answers.append([hits(h) for h in run(go())])
+            assert b._qbatch_flushes == 1 and b._qbatch_items == 6
+        assert plain._qbatch_ms == 0.0
+        unbatched = [hits(run(plain.knn(0, q, 5))) for q in qs]
+        assert answers[0] == answers[1] == unbatched
+        assert unbatched[-1] == [] and unbatched[0]
+        assert sizes[both[0]] == [8] and sizes[both[1]] == [6]
+        t = both[1]
+        sizes[t].clear()
+        assert hits(run(t.knn(0, qs[0], 5, exact=True))) == hits(
+            run(plain.knn(0, qs[0], 5, exact=True)))
+        assert hits(run(t.knn(0, qs[0], 5, filter={"model_id": "m1"}))) == hits(
+            run(plain.knn(0, qs[0], 5, filter={"model_id": "m1"})))
+        assert sizes[t] == [] and t._qbatch_flushes == 1
+        # a later event loop gets its own batcher
+        assert hits(run(t.knn(0, qs[1], 5))) == unbatched[1]
+        assert t._qbatch_flushes == 2
+    finally:
+        for b in both + [plain]:
+            b.close()
+
+
+@pytest.mark.parametrize("n", [50, 32768])
+def test_fingerprint_queries_coalesce(tmp_path, monkeypatch, n):
+    monkeypatch.setenv("UCFP_QUERY_BATCH_MS", "25")
+    rng = np.random.default_rng(51)
+    fps = [rng.bytes(8) for _ in range(n)]
+    both = [JBackend(str(tmp_path / "j")),
+            EmbeddedBackend(str(tmp_path / "t"), device="cpu")]
+    monkeypatch.delenv("UCFP_QUERY_BATCH_MS")
+    plain = EmbeddedBackend(str(tmp_path / "p"), device="cpu")
+    answers, sizes = [], {}
+    try:
+        for b in both + [plain]:
+            run(b.upsert_fingerprint_batch(0, PHASH, list(range(n)), fps))
+        for b in both:
+            sizes[b] = []
+            _counting(b, "knn_fingerprint_batch", sizes[b])
+
+            async def go(b=b):
+                return await asyncio.gather(*[
+                    b.knn_fingerprint(0, PHASH, fps[i], 3) for i in (4, 17, 33)])
+
+            answers.append([hits(h) for h in run(go())])
+            assert b._qbatch_flushes == 1 and b._qbatch_items == 3
+        unbatched = [hits(run(plain.knn_fingerprint(0, PHASH, fps[i], 3)))
+                     for i in (4, 17, 33)]
+        assert answers[0] == answers[1] == unbatched
+        assert [h[0][:2] for h in unbatched] == [(4, 1.0), (17, 1.0), (33, 1.0)]
+        assert sizes[both[0]] == [4] and sizes[both[1]] == [3]
+    finally:
+        for b in both + [plain]:
+            b.close()
 
 
 def test_no_gpu_and_no_device_raises(tmp_path, monkeypatch):

@@ -203,6 +203,48 @@ def test_fused_capacity_marks_approximate(tmp_path):
         s.close()
 
 
+@pytest.mark.parametrize("n", [300, 32768])
+def test_same_bodies_int8(tmp_path, monkeypatch, n):
+    """Under UCFP_KNN_QUANT=int8 the vector query forms answer alike:
+    below 32,768 rows the exhaustive int8 scan, at 32,768 the int8
+    product with the fused candidate kernels (marked approximate)."""
+    monkeypatch.setenv("UCFP_KNN_QUANT", "int8")
+    s = Servers(tmp_path)
+    try:
+        assert s.t_index.knn_quant == "int8"
+        rng = np.random.default_rng(n)
+        emb = rng.integers(-3, 4, (n, 8)).astype(np.float32)
+        emb[9] = emb[4]  # score ties
+        for b in (s.j_index, s.t_index):
+            for lo, mid in ((0, "m1"), (n // 2, "m2")):
+                asyncio.run(b.upsert_embedding_batch(
+                    0, "embedding-image-local",
+                    list(range(lo, lo + n // 2)), emb[lo:lo + n // 2], model_id=mid))
+        vecs = [[float(x) for x in emb[i] + rng.integers(-1, 2, 8)]
+                for i in (4, 77, n - 1)]
+        queries = [{"vector": vecs[0]}, {"vectors": vecs + [[0.0] * 8]}]
+        for q in list(queries):
+            queries.append({**q, "filter": {"model_id": "m2"}})
+            queries.append({**q, "recall_tier": "exact"})
+        for k in (1, 10):
+            for q in queries:
+                st, res = s.call("POST", "/v1/query",
+                                 {"tenant_id": 0, "modality": "image", "k": k, **q})
+                assert st == 200
+                if "recall_tier" not in q:
+                    assert bool(res.get("approximate")) == (n == 32768)
+        # a record written after the first query: the int8 row patch
+        rec = {"tenant_id": 0, "record_id": 10**6, "modality": "image",
+               "algorithm": "embedding-image-local", "fingerprint": [1, 2, 3, 4],
+               "embedding": [9.0, -9.0] * 4, "model_id": "m1"}
+        assert s.call("POST", "/v1/records", {"records": [rec]})[0] == 200
+        st, res = s.call("POST", "/v1/query", {"tenant_id": 0, "modality": "image",
+                                               "k": 3, "vector": [9.0, -8.0] * 4})
+        assert res["hits"][0]["record_id"] == 10**6
+    finally:
+        s.close()
+
+
 def test_later_slice_routes_answer_501(tmp_path):
     t = EmbeddedBackend(str(tmp_path), device="cpu")
     app = build_server(ServerState(index=t, api_keys=StaticSingleKey(TOKEN)))

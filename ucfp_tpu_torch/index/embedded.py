@@ -12,18 +12,25 @@ small writes.
 
 Device side: the caches live on one torch device (the CUDA card unless
 the caller names another) as float32 vectors and int32 tensors holding
-the u32 fingerprint words. Queries run ops.knn (exact paths),
-ops.fused_scan (the CUDA candidate scans, at capacities of 32,768 rows
-or more) and ops.imagehash.multihash_weighted_topk. Row patches update
-the device tensors in place (saving a catalog copy per write); all work
-runs on one stream in launch order, so a query sees whole rows.
+the u32 fingerprint words; under UCFP_KNN_QUANT=int8 (or knn_quant=
+"int8") the vector caches live as per-row int8 rows plus their norms
+instead (ops.knn.quantize_rows_int8). Queries run ops.knn (exact paths
+and the int8 product), ops.fused_scan (the CUDA candidate scans, at
+capacities of 32,768 rows or more) and
+ops.imagehash.multihash_weighted_topk. Row patches update the device
+tensors in place (saving a catalog copy per write); all work runs on one
+stream in launch order, so a query sees whole rows.
 
-Not in this slice (later ports): sharding, the quantized tiers
-(UCFP_KNN_QUANT other than "none" raises UnsupportedError), query
-micro-batching, LSH / BM25 / audio indexes, and autocompaction. Records
-that need one of those indexes — text (BM25) or the LSH, audio-landmark
-and haitsma algorithms — are refused on write, and a data directory that
-holds them raises UnsupportedError on open instead of dropping them.
+Query micro-batching (UCFP_QUERY_BATCH_MS > 0) coalesces concurrent
+plain knn() and knn_fingerprint() calls into one knn_batch /
+knn_fingerprint_batch dispatch per bucket, as the reference does.
+
+Not in this slice (later ports): sharding, the sketch / int4 / int2
+tiers (they raise UnsupportedError), LSH / BM25 / audio indexes, and
+autocompaction. Records that need one of those indexes — text (BM25) or
+the LSH, audio-landmark and haitsma algorithms — are refused on write,
+and a data directory that holds them raises UnsupportedError on open
+instead of dropping them.
 """
 
 from __future__ import annotations
@@ -60,6 +67,8 @@ HAITSMA_ALGORITHM = "audiofp-haitsma-v1"
 #: algorithms whose queries need an index this slice does not port yet
 LATER_SLICE_ALGOS = frozenset((LSH_ALGORITHM, *AUDIO_LANDMARK_ALGOS,
                                HAITSMA_ALGORITHM))
+#: the UCFP_KNN_QUANT modes this build serves
+SERVED_QUANT = ("none", "int8")
 
 
 def _record_event(rec: Record) -> dict:
@@ -247,16 +256,32 @@ class EmbeddedBackend(IndexBackend):
     the plain PyTorch paths on the host.
     """
 
-    def __init__(self, data_dir: str, wal_engine: str = "auto", device=None):
+    def __init__(self, data_dir: str, wal_engine: str = "auto", device=None,
+                 knn_quant: str | None = None):
         from .wal import GroupCommitWal, JsonWal, open_wal
 
         self.device = resolve_device(device)
-        knn_quant = os.environ.get("UCFP_KNN_QUANT", "none").lower()
-        if knn_quant != "none":
+        # "none" = exact f32 cosine; "int8" = per-row symmetric int8 rows
+        # (a quarter of the f32 bytes; scores are cosines of the quantized
+        # vectors). Also settable via UCFP_KNN_QUANT.
+        self.knn_quant = (knn_quant or os.environ.get("UCFP_KNN_QUANT", "none")).lower()
+        if self.knn_quant not in SERVED_QUANT:
             raise UnsupportedError(
-                f"UCFP_KNN_QUANT={knn_quant!r}: the quantized tiers are "
-                f"not served by this build (only 'none')"
+                f"UCFP_KNN_QUANT={self.knn_quant!r}: this build serves "
+                f"only {' and '.join(map(repr, SERVED_QUANT))}"
             )
+        # Query micro-batching (opt-in, UCFP_QUERY_BATCH_MS > 0):
+        # concurrent plain single queries coalesce into one batched device
+        # dispatch per (tenant, dim, k) or (tenant, algorithm, k) bucket
+        # inside the deadline window, flushing at most UCFP_QBATCH_MAX
+        # queries at once. Filtered, exact and pool_frac queries bypass it.
+        self._qbatch_ms = float(os.environ.get("UCFP_QUERY_BATCH_MS", "0") or 0)
+        self._qbatch_max = max(1, int(os.environ.get("UCFP_QBATCH_MAX", "64") or 64))
+        # kind ("vec"/"fp") -> {event loop -> DeadlineBatcher}
+        self._batchers: dict[str, dict] = {}
+        # flushes and total queries through the micro-batchers since boot
+        self._qbatch_flushes = 0
+        self._qbatch_items = 0
         self._tag_codes: dict[str, int] = {}  # algorithm/model_id interning
         # tenant -> insertion-ordered record ids (listing pagination)
         self._tenant_rows: dict[int, dict[int, None]] = {}
@@ -878,6 +903,42 @@ class EmbeddedBackend(IndexBackend):
         m[torch.as_tensor(ridx, device=self.device)] = self._to_device(vals)
         return m
 
+    #: rows per host quantization pass when the int8 cache is built: the
+    #: f32 temporaries stay this many rows, not a catalog copy
+    INT8_BUILD_ROWS = 1 << 16
+
+    def _device_int8(self, cache: _RowCache) -> tuple:
+        """(q8m [cap, D8] int8, row_norm [cap] f32, valid) on the device —
+        the int8 branch of the reference's _device_vec, same rule: a full
+        build on first use or capacity growth, otherwise only the rows
+        touched since the last sync, quantized on the host. D8 pads the
+        width with zero columns for the int8 product (ops.knn.padded_dim);
+        the host cache and the WAL keep D."""
+        cap, dim = cache.data.shape
+        if cache.dirty or cache.device is None:
+            cache.device = None  # the old copy can go before the new one lands
+            q8m = torch.zeros((cap, knn_ops.padded_dim(dim)), dtype=torch.int8,
+                              device=self.device)
+            row_norm = torch.empty(cap, dtype=torch.float32, device=self.device)
+            for lo in range(0, cap, self.INT8_BUILD_ROWS):
+                hi = min(cap, lo + self.INT8_BUILD_ROWS)
+                q8, rn = knn_ops.quantize_rows_int8(cache.data[lo:hi])
+                q8m[lo:hi, :dim] = torch.from_numpy(q8).to(self.device)
+                row_norm[lo:hi] = torch.from_numpy(rn).to(self.device)
+            cache.device = (q8m, row_norm, self._device_valid(cap, cache.n))
+            cache.dirty = False
+            cache.pending = []
+        elif cache.pending:
+            rows = sorted(set(cache.pending))
+            q8, rn = knn_ops.quantize_rows_int8(cache.data[rows])
+            q8m, row_norm, _v = cache.device
+            ridx = torch.as_tensor(rows, device=self.device)
+            q8m[ridx, :dim] = torch.from_numpy(q8).to(self.device)  # in place
+            row_norm[ridx] = torch.from_numpy(rn).to(self.device)
+            cache.device = (q8m, row_norm, self._device_valid(cap, cache.n))
+            cache.pending = []
+        return cache.device
+
     def _device_rows(self, cache: _RowCache) -> tuple:
         """(matrix, valid) on the device — the reference's _device_vec
         and _device_ham, which share this rule: full upload on first
@@ -909,8 +970,9 @@ class EmbeddedBackend(IndexBackend):
                            exact: bool = False) -> bool:
         """True when a (dim, k) vector query rides the fused candidate
         path (near-exact for k <= 16, exact top-1), so the serving layer
-        marks the response. Single and batched queries take the same path
-        (no quantized tiers here), so one marker serves both."""
+        marks the response. Single and batched queries take the same
+        rule under "none" and "int8" (the reference's marker ends in the
+        same _fused_pool_ok for both), so one marker serves both."""
         if exact:
             return False
         cache = self._vec.get((tenant_id, dim))
@@ -945,13 +1007,14 @@ class EmbeddedBackend(IndexBackend):
                     for i in idx.reshape(-1)[keep.reshape(-1)]}
 
     def _snapshot(self, cache: _RowCache, attempt: int, last: int,
-                  flt_mask=True):
+                  flt_mask=True, int8: bool = False):
         """Device tensors + (gen, rid copy on the final attempt, n), all
         under the lock (see the reference's knn for why n and gen must be
-        read together)."""
-        dev = self._device_rows(cache)
+        read together). The filter mask is ANDed into the validity mask,
+        the last device tensor."""
+        dev = self._device_int8(cache) if int8 else self._device_rows(cache)
         if flt_mask is not True:
-            dev = (dev[0], dev[1] & torch.as_tensor(flt_mask, device=self.device))
+            dev = (*dev[:-1], dev[-1] & torch.as_tensor(flt_mask, device=self.device))
         rids_copy = list(cache.rids) if attempt == last else None
         return dev, cache.gen, rids_copy, cache.n
 
@@ -967,10 +1030,11 @@ class EmbeddedBackend(IndexBackend):
         """Cosine top-k: empty query, k=0 or zero-norm query -> empty;
         only vectors of matching dim. exact forces the exhaustive scan;
         filter {"algorithm", "model_id"} masks rows on the device.
-        pool_frac only tunes quantized tiers, which this build lacks."""
+        pool_frac only tunes the sketch tier, which this build lacks; a
+        query that names one is not micro-batched, as in the reference."""
         if not query or k == 0:
             return []
-        quantize_pool_frac(pool_frac)  # same ValueError as the reference
+        pool_frac = quantize_pool_frac(pool_frac)  # the reference's ValueError
         q = np.asarray(query, np.float32)
         if float(np.linalg.norm(q)) == 0.0:
             return []
@@ -980,7 +1044,12 @@ class EmbeddedBackend(IndexBackend):
         cache = self._vec.get((tenant_id, len(query)))
         if cache is None or cache.n == 0:
             return []
-        res = await self._knn_rows(cache, q[None], k, filter, exact)
+        if (self._qbatch_ms > 0 and filter is None and not exact
+                and pool_frac is None):
+            # opt-in micro-batching (see __init__), after the cheap host
+            # early-outs so degenerate queries never wait for a window
+            return await self._submit_query_batched(tenant_id, list(query), k)
+        res = await self._knn_rows(cache, q[None], k, filter, exact, single=True)
         return res[0]
 
     async def knn_batch(
@@ -1011,8 +1080,61 @@ class EmbeddedBackend(IndexBackend):
         return [[] if float(np.linalg.norm(qm[row])) == 0.0 else hits
                 for row, hits in enumerate(res)]
 
+    def _int8_single_topk(self, q: np.ndarray, q8m, row_norm, valid, kk: int,
+                          n: int, exact: bool, n_prefix: int | None):
+        """The reference's single-query int8 top-k: the int8 product plus
+        kernel #4 (unfiltered: validity is the prefix rule, n_prefix) or
+        the filtered scores through kernel #3 when the fused candidate
+        path applies, else the exhaustive cosine_topk_int8."""
+        if exact or not self._fused_pool_ok(q8m.shape[0], n, kk):
+            qd = torch.from_numpy(q[None]).to(self.device)
+            return knn_ops.cosine_topk_int8(qd, q8m, row_norm, valid, kk)
+        # the reference quantizes the single query on the host, in numpy
+        qa = float(np.abs(q).max())
+        qs = 1.0 if qa == 0.0 else qa / 127.0
+        qq = np.clip(np.round(q / qs), -127, 127).astype(np.int8)
+        qn = float(np.linalg.norm(np.asarray(qq, np.float32)))
+        dots = knn_ops.int8_dots(torch.from_numpy(qq[None]).to(self.device), q8m)[0]
+        if n_prefix is not None:
+            s1, i1 = fused_scan.dots_norm_topk_fused(
+                dots, row_norm, n_prefix, np.float32(1.0 / max(qn, 1e-9)), kk)
+        else:
+            q_floor = torch.tensor(max(qn, 1e-9), dtype=torch.float32,
+                                   device=self.device)
+            denom = q_floor * torch.clamp(row_norm, min=1e-9)
+            ok = valid & (row_norm > 0.0)
+            sc = torch.where(ok, dots.float() / denom, knn_ops.NEG_INF)
+            s1, i1 = fused_scan.scores_topk_fused(sc, kk)
+        return s1[None, :], i1[None, :]
+
+    def _int8_batch_topk(self, qm: np.ndarray, q8m, row_norm, valid, kk: int,
+                         n: int, exact: bool, n_prefix: int | None):
+        """The reference knn_batch's int8 branch: one int8 product for the
+        whole block, then kernel #5 (unfiltered) or the filtered scores
+        through kernel #1 when the fused candidate path applies, else the
+        exhaustive cosine_topk_int8."""
+        qd = torch.from_numpy(qm).to(self.device)
+        if exact or not self._fused_pool_ok(q8m.shape[0], n, kk):
+            return knn_ops.cosine_topk_int8(qd, q8m, row_norm, valid, kk)
+        qq = knn_ops._quantize_query_rows(qd)
+        dots = knn_ops.int8_dots(qq, q8m)
+        qn = knn_ops.int8_norms(qq)
+        q_floor = torch.clamp(qn, min=1e-9)
+        if n_prefix is not None:
+            inv_q = torch.where(qn > 0.0, torch.ones_like(qn) / q_floor,
+                                torch.zeros_like(qn))
+            return fused_scan.dots_norm_topk_fused_batched(
+                dots, row_norm, n_prefix, inv_q, kk)
+        denom = q_floor[:, None] * torch.clamp(row_norm, min=1e-9)[None, :]
+        ok = valid[None, :] & (row_norm[None, :] > 0.0)
+        sc = torch.where(ok, dots.float() / denom, knn_ops.NEG_INF)
+        return fused_scan.scores_topk_fused_batched(sc, kk)
+
     async def _knn_rows(self, cache: _RowCache, qm: np.ndarray, k: int,
-                        filter: Optional[dict], exact: bool) -> list[list[Hit]]:
+                        filter: Optional[dict], exact: bool,
+                        single: bool = False) -> list[list[Hit]]:
+        int8 = self.knn_quant == "int8"
+
         def work(_attempt=0, _last=2):
             with self._lock:
                 # filter mask under the SAME lock as the device snapshot:
@@ -1021,14 +1143,24 @@ class EmbeddedBackend(IndexBackend):
                             if filter is not None else True)
                 if flt_mask is None:
                     return [[] for _ in range(qm.shape[0])]
-                (matrix, valid), gen_snap, rids_copy, n_snap = self._snapshot(
-                    cache, _attempt, _last, flt_mask)
+                dev, gen_snap, rids_copy, n_snap = self._snapshot(
+                    cache, _attempt, _last, flt_mask, int8=int8)
             kk = min(k, n_snap)
-            qd = torch.from_numpy(qm).to(self.device)
-            if not exact and self._fused_pool_ok(matrix.shape[0], n_snap, kk):
-                scores, idx = knn_ops.cosine_topk_fused(qd, matrix, valid, kk)
+            if int8:
+                q8m, row_norm, valid = dev
+                # unfiltered queries: validity is the prefix rule, which
+                # the dots-norm kernels apply in-stream
+                n_prefix = n_snap if flt_mask is True else None
+                topk = self._int8_single_topk if single else self._int8_batch_topk
+                scores, idx = topk(qm[0] if single else qm, q8m, row_norm, valid,
+                                   kk, n_snap, exact, n_prefix)
             else:
-                scores, idx = knn_ops.cosine_topk(qd, matrix, valid, kk)
+                matrix, valid = dev
+                qd = torch.from_numpy(qm).to(self.device)
+                if not exact and self._fused_pool_ok(matrix.shape[0], n_snap, kk):
+                    scores, idx = knn_ops.cosine_topk_fused(qd, matrix, valid, kk)
+                else:
+                    scores, idx = knn_ops.cosine_topk(qd, matrix, valid, kk)
             scores = scores.cpu().numpy()
             idx = idx.cpu().numpy()
             keep = np.isfinite(scores)
@@ -1047,6 +1179,61 @@ class EmbeddedBackend(IndexBackend):
 
         return await asyncio.to_thread(work)
 
+    # -- query micro-batching ---------------------------------------------------
+    #
+    # The reference pads each flush to a power of two (UCFP_QBATCH_PAD)
+    # only to bound XLA's compiles per shape; the padded rows are sliced
+    # off, so no answer depends on them, and PyTorch compiles nothing per
+    # shape: the port runs each flush at its own size.
+
+    def _deadline_batcher(self, kind: str, run):
+        """Per-event-loop DeadlineBatcher registry: a batcher holds
+        loop-bound asyncio primitives, so each running loop gets its own
+        (a server runs one loop; tests and threaded direct callers run
+        many). Closed loops' entries are pruned on the way."""
+        from ..ingest.batcher import DeadlineBatcher
+
+        loop = asyncio.get_running_loop()
+        with self._lock:
+            reg = self._batchers.setdefault(kind, {})
+            b = reg.get(loop)
+            if b is None:
+                for dead in [lp for lp in reg if lp.is_closed()]:
+                    del reg[dead]
+                b = DeadlineBatcher(run, max_batch=self._qbatch_max,
+                                    max_delay_ms=self._qbatch_ms)
+                reg[loop] = b
+        return b
+
+    def _note_flush(self, payloads: list) -> None:
+        with self._lock:  # several event-loop threads may flush at once
+            self._qbatch_flushes += 1
+            self._qbatch_items += len(payloads)
+
+    async def _run_vec_bucket(self, bucket, payloads):
+        t, _dim, kk = bucket
+        self._note_flush(payloads)
+        return await self.knn_batch(t, payloads, kk)
+
+    async def _submit_query_batched(self, tenant_id: int, query: list,
+                                    k: int) -> list[Hit]:
+        """Enqueue one plain vector query; resolves to its own hits once
+        its (tenant, dim, k) bucket flushes through knn_batch."""
+        b = self._deadline_batcher("vec", self._run_vec_bucket)
+        return await b.submit((tenant_id, len(query), k), query)
+
+    async def _run_fp_bucket(self, bucket, payloads):
+        t, alg, kk = bucket
+        self._note_flush(payloads)
+        return await self.knn_fingerprint_batch(t, alg, payloads, kk)
+
+    async def _submit_fp_batched(self, tenant_id: int, algorithm: str,
+                                 fingerprint: bytes, k: int) -> list[Hit]:
+        """Fingerprint twin of _submit_query_batched (its own registry
+        kind, so bucket keys cannot collide)."""
+        b = self._deadline_batcher("fp", self._run_fp_bucket)
+        return await b.submit((tenant_id, algorithm, k), fingerprint)
+
     async def knn_fingerprint(
         self, tenant_id: int, algorithm: str, fingerprint: bytes, k: int
     ) -> list[Hit]:
@@ -1054,6 +1241,10 @@ class EmbeddedBackend(IndexBackend):
         1 - dist/bits so larger is better."""
         if k == 0 or not fingerprint:
             return []
+        if self._qbatch_ms > 0:
+            # the same opt-in micro-batching as plain vector queries
+            return await self._submit_fp_batched(tenant_id, algorithm,
+                                                 fingerprint, k)
         res = await self.knn_fingerprint_batch(tenant_id, algorithm,
                                                [fingerprint], k)
         return res[0]

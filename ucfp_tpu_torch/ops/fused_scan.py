@@ -10,9 +10,15 @@ approximate.
 Kernels (CUDA C++ for sm_90a, csrc/fused_scan.cu):
   * scores_topk_fused_batched  — per-cell argbest over precomputed
     scores, tiles of ROWS_PER_TILE=256 rows x 128 lanes;
+    scores_topk_fused is its single-query [C] form (the same kernel at
+    Q = 1, counted under its own name);
   * hamming_topk_fused_batched — fused XOR-popcount + per-cell argmin,
     tiles of ROWS_PER_TILE//2=128 rows x 128 lanes, QSEL queries per
-    block so each catalog row is read once per query block.
+    block so each catalog row is read once per query block;
+  * dots_norm_topk_fused_batched — int32 dots -> cosine (/|row| * 1/|q|)
+    -> prefix validity -> per-cell argbest, tiles of 256 rows x 128
+    lanes, QSEL queries per block so the row norms are read once per
+    query block; dots_norm_topk_fused is its single-query [C] form.
 
 The final selection runs over the flat candidate array in the order
 t*128 + lane (the reference's moveaxis/reshape order, NOT global row
@@ -38,9 +44,12 @@ QSEL = 8  # queries per Hamming block: one catalog read serves 8 queries
 # fingerprints ride the exact ops.knn.hamming_topk path
 MAX_FUSED_HAMMING_WORDS = 16
 _INVALID_DIST = 1 << 30
+NEG_INF = float("-inf")
 
 #: kernel launches since the last reset_launch_counts(), by wrapper name
-LAUNCHES = {"scores_topk_fused_batched": 0, "hamming_topk_fused_batched": 0}
+LAUNCHES = {"scores_topk_fused_batched": 0, "hamming_topk_fused_batched": 0,
+            "scores_topk_fused": 0, "dots_norm_topk_fused": 0,
+            "dots_norm_topk_fused_batched": 0}
 _count_lock = threading.Lock()
 
 
@@ -71,6 +80,8 @@ def _kernels():
         lib.ucfp_scores_cells.argtypes = [p, i, i, i, ll, p, p, p]
         lib.ucfp_hamming_cells.restype = i
         lib.ucfp_hamming_cells.argtypes = [p, i, i, p, p, ll, p, p, p]
+        lib.ucfp_dots_norm_cells.restype = i
+        lib.ucfp_dots_norm_cells.argtypes = [p, i, ll, p, ll, p, p, p, p]
         _lib = lib
     return _lib
 
@@ -107,7 +118,8 @@ def _scores_cells_plain(scores: torch.Tensor, largest: bool):
     return val.reshape(q, -1), gidx.to(torch.int32).reshape(q, -1)
 
 
-def _scores_cells_cuda(scores: torch.Tensor, largest: bool):
+def _scores_cells_cuda(scores: torch.Tensor, largest: bool,
+                       name: str = "scores_topk_fused_batched"):
     q, c = scores.shape
     if not scores.is_contiguous():
         raise ValueError("scores must be contiguous")
@@ -118,8 +130,8 @@ def _scores_cells_cuda(scores: torch.Tensor, largest: bool):
         scores.data_ptr(), int(scores.dtype == torch.bfloat16), int(largest),
         q, c, best.data_ptr(), gidx.data_ptr(), _stream_ptr(scores),
     )
-    _check(rc, "scores_topk_fused_batched")
-    _count("scores_topk_fused_batched")
+    _check(rc, name)
+    _count(name)
     return best, gidx
 
 
@@ -184,6 +196,40 @@ def _hamming_cells_cuda(queries: torch.Tensor, db: torch.Tensor,
     return dist, gidx
 
 
+def _dots_norm_cells_plain(dots: torch.Tensor, row_norm: torch.Tensor,
+                           n_valid: int, inv_q: torch.Tensor):
+    """_dots_norm_kernel_batched literally: dots / max(|row|, 1e-9) *
+    1/|q| where row < n and |row| > 0, else -inf; then _qblock_argbest
+    (max per cell, the smallest row among the hits)."""
+    q, c = dots.shape
+    dev = dots.device
+    ok = (torch.arange(c, device=dev) < n_valid) & (row_norm > 0.0)
+    rn = torch.clamp(row_norm, min=1e-9)
+    scores = torch.where(ok[None, :], dots.float() / rn[None, :] * inv_q[:, None],
+                         NEG_INF)
+    return _scores_cells_plain(scores, True)
+
+
+def _dots_norm_cells_cuda(dots: torch.Tensor, row_norm: torch.Tensor,
+                          n_valid: int, inv_q: torch.Tensor, name: str):
+    q, c = dots.shape
+    for arg, t in (("dots", dots), ("row_norm", row_norm), ("inv_qnorm", inv_q)):
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+        if t.device != dots.device:
+            raise ValueError(f"{arg} must be on {dots.device}")
+    tiles = c // (ROWS_PER_TILE * LANES)
+    best = torch.empty((q, tiles * LANES), dtype=torch.float32, device=dots.device)
+    gidx = torch.empty((q, tiles * LANES), dtype=torch.int32, device=dots.device)
+    rc = _kernels().ucfp_dots_norm_cells(
+        dots.data_ptr(), q, c, row_norm.data_ptr(), int(n_valid),
+        inv_q.data_ptr(), best.data_ptr(), gidx.data_ptr(), _stream_ptr(dots),
+    )
+    _check(rc, name)
+    _count(name)
+    return best, gidx
+
+
 # ---------------------------------------------------------------------------
 # final selection (lax.top_k over the flat candidates, outside the kernels)
 # ---------------------------------------------------------------------------
@@ -199,6 +245,14 @@ def _select(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
     return torch.gather(vals, 1, order), torch.gather(gidx, 1, order)
 
 
+def _check_tiles(name: str, c: int) -> None:
+    """The reference's ValueError for a catalog that is not whole tiles."""
+    if c % (ROWS_PER_TILE * LANES):
+        raise ValueError(
+            f"{name} requires C % {ROWS_PER_TILE * LANES} == 0, got {c}"
+        )
+
+
 def _check_scores(scores: torch.Tensor, largest: bool, approx: bool) -> None:
     if approx and not largest:
         raise ValueError("approx selection supports largest=True only")
@@ -206,12 +260,7 @@ def _check_scores(scores: torch.Tensor, largest: bool, approx: bool) -> None:
         raise ValueError(f"scores must be [Q, C], got {tuple(scores.shape)}")
     if scores.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"scores must be float32 or bfloat16, got {scores.dtype}")
-    c = scores.shape[1]
-    if c % (ROWS_PER_TILE * LANES):
-        raise ValueError(
-            f"scores_topk_fused_batched requires C % {ROWS_PER_TILE * LANES}"
-            f" == 0, got {c}"
-        )
+    _check_tiles("scores_topk_fused_batched", scores.shape[1])
 
 
 def scores_topk_fused_batched(scores: torch.Tensor, k: int,
@@ -254,12 +303,7 @@ def _check_hamming(queries: torch.Tensor, db: torch.Tensor,
             f"fused Hamming scan takes at most {MAX_FUSED_HAMMING_WORDS} "
             f"words, got {w} (wider fingerprints take the exact path)"
         )
-    c = db.shape[0]
-    if c % (ROWS_PER_TILE * LANES):
-        raise ValueError(
-            f"hamming_topk_fused_batched requires C % {ROWS_PER_TILE * LANES}"
-            f" == 0, got {c}"
-        )
+    _check_tiles("hamming_topk_fused_batched", db.shape[0])
 
 
 def hamming_topk_fused_batched(queries: torch.Tensor, db: torch.Tensor,
@@ -281,3 +325,96 @@ def hamming_topk_fused_batched_plain(queries: torch.Tensor, db: torch.Tensor,
     _check_hamming(queries, db, valid)
     dist, gidx = _hamming_cells_plain(queries, db, valid)
     return _select(dist, gidx, k, largest=False)
+
+
+def _check_scores_1d(scores: torch.Tensor) -> None:
+    if scores.dim() != 1 or scores.dtype != torch.float32:
+        raise ValueError(
+            f"scores must be a [C] float32 vector, got {scores.dtype} "
+            f"{tuple(scores.shape)}"
+        )
+    _check_tiles("scores_topk_fused", scores.shape[0])
+
+
+def scores_topk_fused(scores: torch.Tensor, k: int, largest: bool = True):
+    """scores [C] f32, C % 32768 == 0 -> ([k] f32 values, [k] int32
+    catalog indices), best first (smallest first for largest=False)."""
+    _check_scores_1d(scores)
+    s = scores[None, :]
+    if scores.device.type == "cpu":
+        vals, gidx = _scores_cells_plain(s, largest)
+    else:
+        vals, gidx = _scores_cells_cuda(s, largest, "scores_topk_fused")
+    v, i = _select(vals, gidx, k, largest)
+    return v[0], i[0]
+
+
+def scores_topk_fused_plain(scores: torch.Tensor, k: int, largest: bool = True):
+    """Plain PyTorch version of scores_topk_fused on any device."""
+    _check_scores_1d(scores)
+    v, i = _select(*_scores_cells_plain(scores[None, :], largest), k, largest)
+    return v[0], i[0]
+
+
+def _check_dots_norm(name: str, dots: torch.Tensor, row_norm: torch.Tensor,
+                     inv_q: torch.Tensor) -> None:
+    if dots.dim() != 2 or dots.dtype != torch.int32:
+        raise ValueError(f"{name}: dots must be int32, got {dots.dtype} "
+                         f"{tuple(dots.shape)}")
+    q, c = dots.shape
+    if row_norm.dtype != torch.float32 or row_norm.shape != (c,):
+        raise ValueError(f"{name}: row_norm must be a [C={c}] float32 vector")
+    if inv_q.dtype != torch.float32 or inv_q.shape != (q,):
+        raise ValueError(f"{name}: inv_qnorm must be float32, one per query")
+    _check_tiles(name, c)
+
+
+def _dots_norm_topk(name: str, dots, row_norm, n_valid, inv_q, k: int,
+                    plain: bool):
+    _check_dots_norm(name, dots, row_norm, inv_q)
+    if plain or dots.device.type == "cpu":
+        vals, gidx = _dots_norm_cells_plain(dots, row_norm, int(n_valid), inv_q)
+    else:
+        vals, gidx = _dots_norm_cells_cuda(dots, row_norm, int(n_valid), inv_q, name)
+    return _select(vals, gidx, k, largest=True)
+
+
+def _dots_norm_single(dots, row_norm, n_valid, inv_qnorm, k: int, plain: bool):
+    if dots.dim() != 1:
+        raise ValueError(f"dots must be a [C] vector, got {tuple(dots.shape)}")
+    inv_q = torch.as_tensor(inv_qnorm, dtype=torch.float32,
+                            device=dots.device).reshape(1)
+    v, i = _dots_norm_topk("dots_norm_topk_fused", dots[None, :], row_norm,
+                           n_valid, inv_q, k, plain)
+    return v[0], i[0]
+
+
+def dots_norm_topk_fused(dots: torch.Tensor, row_norm: torch.Tensor,
+                         n_valid: int, inv_qnorm, k: int):
+    """Single-query cosine top-k off the int8 product: dots [C] int32,
+    row_norm [C] f32, rows >= n_valid score -inf, inv_qnorm the float32
+    1/|q| -> ([k] f32, [k] int32), best first. Zero-norm rows score
+    -inf."""
+    return _dots_norm_single(dots, row_norm, n_valid, inv_qnorm, k, plain=False)
+
+
+def dots_norm_topk_fused_plain(dots: torch.Tensor, row_norm: torch.Tensor,
+                               n_valid: int, inv_qnorm, k: int):
+    """Plain PyTorch version of dots_norm_topk_fused on any device."""
+    return _dots_norm_single(dots, row_norm, n_valid, inv_qnorm, k, plain=True)
+
+
+def dots_norm_topk_fused_batched(dots: torch.Tensor, row_norm: torch.Tensor,
+                                 n_valid: int, inv_qnorm: torch.Tensor, k: int):
+    """Batched dots_norm_topk_fused: dots [Q, C] int32, inv_qnorm [Q] f32
+    -> ([Q, k] f32, [Q, k] int32)."""
+    return _dots_norm_topk("dots_norm_topk_fused_batched", dots, row_norm,
+                           n_valid, inv_qnorm, k, plain=False)
+
+
+def dots_norm_topk_fused_batched_plain(dots: torch.Tensor, row_norm: torch.Tensor,
+                                       n_valid: int, inv_qnorm: torch.Tensor,
+                                       k: int):
+    """Plain PyTorch version of dots_norm_topk_fused_batched on any device."""
+    return _dots_norm_topk("dots_norm_topk_fused_batched", dots, row_norm,
+                           n_valid, inv_qnorm, k, plain=True)
