@@ -14,7 +14,10 @@ each:
                   tie-heavy shapes: values and indices bit-equal. Kernel,
                   plain and library times (CUDA events, median of 25 runs)
                   and the bound for the same work; the int8 product
-                  (torch._int_mm) held exact, its shape rules and its time
+                  (torch._int_mm) held exact, its shape rules and its time;
+                  the three int4 kernels bit-equal at 2^22 and 2^23 rows
+                  (and D = 770), and the int4 pack on the card equal to
+                  the pack on the CPU
   4. conformance  the image hashes computed on the card against
                   tests/goldens/conformance.json
   5. served       the port's EmbeddedBackend on the card, bulk-loaded with
@@ -32,14 +35,23 @@ each:
                   single vector and 64 single fingerprint_hex requests at
                   once; every answer equals the unbatched one and the
                   flushes are fewer than the requests
+  8. int4         an EmbeddedBackend with knn_quant="int4" (and
+                  UCFP_QUERY_BATCH_MS=2) holding 2^22 x 768 vectors under
+                  two model ids, served over loopback HTTP: with batching
+                  off, vector, vectors x32, each with and without a filter,
+                  and the exact tier; an upsert (the packed column patch),
+                  a query that finds it, a delete; then with batching on,
+                  64 single vector requests from 32 client threads, each
+                  answer equal to the unbatched one
 
-In phases 5-7 every served answer is checked against the plain path on
-the same device tensors (or, in phase 7, against the unbatched answer),
-and the launch count of every kernel that the phase's path runs must
-rise between a reset just before the phase's requests and a read just
-after. Then one JSON line with every kernel's numbers (launches summed
-over phases 5-7), and last the line {"ok": true, "device": {...}}.
---phases picks a subset (default: all seven).
+In phases 5-8 every served answer is checked against the plain path on
+the same device tensors (or, in phases 7 and 8, the micro-batched answer
+against the unbatched one), and the launch count of every kernel that
+the phase's path runs must rise between a reset just before the phase's
+requests and a read just after. Then one JSON line with every kernel's
+numbers (launches summed over phases 5-8), and last the line
+{"ok": true, "device": {...}}.
+--phases picks a subset (default: all eight).
 """
 
 import argparse
@@ -91,6 +103,12 @@ QBATCH_PHASH_ROWS = 1 << 20
 QBATCH_MS = 2
 QBATCH_CLIENTS = 32
 QBATCH_REQUESTS = 64  # per form (vector, fingerprint_hex)
+# phase 8: the int4 tier at phase 6's size (the same host-memory cut), where
+# the reference's cost model serves all three int4 kernels; phase 3 holds
+# them at the served rows and at 2^23
+INT4_ROWS = 1 << 22
+INT4_KERNEL_ROWS = (INT4_ROWS, 1 << 23)
+INT4_QBATCH_REQUESTS = 64
 
 PHASH = "imgfprint-phash-v1"
 MULTI = "imgfprint-multi-v1"
@@ -99,6 +117,21 @@ SEM = "embedding-image-local"
 
 def say(line: str) -> None:
     print(line, flush=True)
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from ucfp_tpu_torch.ops import fused_scan, int4_scan
+
+    fused_scan.reset_launch_counts()
+    int4_scan.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from ucfp_tpu_torch.ops import fused_scan, int4_scan
+
+    return {**fused_scan.LAUNCHES, **int4_scan.LAUNCHES}
 
 
 def check(ok: bool, what: str) -> None:
@@ -287,6 +320,11 @@ def phase_kernels(torch, dev, card: dict) -> dict:
                    int_mm_rules=[_int_mm_rules(torch, dev)])
     for c in INT8_KERNEL_ROWS:
         _kernels_int8(torch, dev, card, g, k, c, results)
+    results.update(int4_pack=[], int4_dots=[], int4_scores=[], int4_scores_batched=[])
+    for c in INT4_KERNEL_ROWS:
+        _kernels_int4(torch, dev, card, g, c, DIM, results)
+    # an even width that is not a multiple of 8: a partial last dim group
+    _kernels_int4(torch, dev, card, g, INT4_ROWS, DIM + 2, results)
     for name, rows in results.items():
         say(f"kernels/{name}: " + json.dumps(rows))
     return results
@@ -478,6 +516,149 @@ def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> N
     torch.cuda.empty_cache()
 
 
+def _int4_case(torch, dev, g, c: int, d: int, results: dict):
+    """Packed columns of c random int8 rows, packed on the card, with the
+    edge rows the checks need: zero rows (inv_n4 == 0), rows of all +7,
+    all -7 and alternating +-7 codes, and one row holding every byte
+    value. The card's pack is held equal to the CPU's on a slice."""
+    from ucfp_tpu_torch.ops import knn
+
+    q8 = torch.randint(-127, 128, (c, d), generator=g, device=dev, dtype=torch.int8)
+    q8[3] = 0
+    q8[c - 5] = 0
+    q8[5] = 127
+    q8[6] = -127
+    q8[9, ::2] = 127
+    q8[9, 1::2] = -90
+    m = 1 << 16
+    t0 = time.perf_counter()
+    packed_t, inv_n4 = knn.pack_int4_cols_chunked(q8)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    p_cpu, i_cpu = knn.pack_int4_cols(q8[:m].cpu())
+    check(torch.equal(packed_t[:, :m].cpu(), p_cpu)
+          and _same_bits(torch, inv_n4[:m].cpu(), i_cpu),
+          f"int4 pack on the card == on the CPU c={c} d={d}")
+    check(bool((inv_n4[[3, c - 5]] == 0).all()), "zero rows: inv_n4 == 0")
+    results["int4_pack"].append({"c": c, "d": d, "chunked_pack_s": pack_s})
+    del q8
+    dp = d // 2
+    packed_t[:, 7] = (torch.arange(dp, device=dev) % 256 - 128).to(torch.int8)
+    return packed_t, inv_n4
+
+
+def _int4_unpacked(torch, packed_t):
+    """The int4 values of packed_t as an int8 [C, D] catalog (hi dims, then
+    the unbiased low dims): the library yardstick's input."""
+    hi = torch.bitwise_right_shift(packed_t, 4)
+    lo = torch.bitwise_and(packed_t, 15) - 8
+    return torch.cat([hi, lo]).T.contiguous()
+
+
+def _kernels_int4(torch, dev, card: dict, g, c: int, d: int, results: dict) -> None:
+    """The three int4 kernels against their plain versions, bit for bit:
+    Q in {1, 5, 32, 64, 70}, float32 and bfloat16 out, n at C, C - 1024
+    and mid-tile; then, at the served width, each kernel's time beside
+    its plain version's, torch._int_mm over the unpacked catalog (held
+    exact against the corrected dots) and the bound."""
+    from ucfp_tpu_torch.ops import int4_scan as i4
+    from ucfp_tpu_torch.ops import knn
+
+    dp = d // 2
+    packed_t, inv_n4 = _int4_case(torch, dev, g, c, d, results)
+    timed = d == DIM
+    qmax = 70
+    qs = torch.randint(-127, 128, (qmax, d), generator=g, device=dev, dtype=torch.int8)
+    qs[0] = 127  # queries of all +-127
+    qs[1] = -127
+    qs[2, ::2] = -127
+    wh, wl = qs[:, :dp].contiguous(), qs[:, dp:].contiguous()
+    corrs = 8 * wl.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    ns = (c, c - 1024, c // 2 + 77)
+    err = {"int4_dots": 0.0, "int4_scores": 0.0, "int4_scores_batched": 0.0}
+
+    def same(key, got, want, what):
+        torch.cuda.synchronize()
+        check(_same_bits(torch, got, want), f"{what} c={c} d={d}")
+        err[key] = max(err[key], _max_abs(torch, got, want))
+
+    # #11: uncorrected dots, one query (the single kernel) and five
+    for nq in (1, 5):
+        h, lw = (wh[0], wl[0]) if nq == 1 else (wh[:nq], wl[:nq])
+        same("int4_dots", i4.int4_dots(packed_t, h, lw), i4.int4_dots_plain(packed_t, h, lw),
+             f"int4_dots bit-equal nq={nq}")
+    # #9: one query's masked scores
+    for n in ns:
+        got = i4.int4_masked_scores(packed_t, wh[0], wl[0], inv_n4, corrs[0], n)
+        same("int4_scores", got,
+             i4.int4_masked_scores_plain(packed_t, wh[0], wl[0], inv_n4, corrs[0], n),
+             f"int4_masked_scores bit-equal n={n}")
+        check(bool(torch.isneginf(got[n:]).all()) and bool(torch.isneginf(got[3])),
+              "-inf past n and on zero rows")
+    # #10: query blocks, both output types
+    for q in (1, 5, 32, 64, 70):
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in ns:
+                args = (packed_t, wh[:q], wl[:q], corrs[:q], inv_n4, n)
+                same("int4_scores_batched",
+                     i4.int4_masked_scores_batched(*args, out_dtype=dtype),
+                     i4.int4_masked_scores_batched_plain(*args, out_dtype=dtype),
+                     f"int4_masked_scores_batched bit-equal q={q} {dtype} n={n}")
+    results["int4_pack"][-1]["max_abs_err"] = err
+    if not timed:
+        del packed_t, inv_n4
+        torch.cuda.empty_cache()
+        return
+
+    unpacked = _int4_unpacked(torch, packed_t)
+
+    def int_mm(q):
+        a = torch.zeros((max(q, knn.INT_MM_MIN_M), d), dtype=torch.int8, device=dev)
+        a[:q] = qs[:q]
+        return torch._int_mm(a, unpacked.T)[:q]
+
+    true_dots = i4.int4_dots(packed_t, wh[:32], wl[:32]) - corrs[:32, None]
+    torch.cuda.synchronize()
+    check(torch.equal(int_mm(32), true_dots),
+          f"torch._int_mm over the unpacked catalog == corrected dots c={c}")
+    del true_dots
+
+    def bound(q, out_bytes, inv=True):
+        return bound_ms(card, c * dp + (c * 4 if inv else 0) + q * c * out_bytes + q * d,
+                        int8_mma_ops=2 * q * c * d)
+
+    b, by = bound(1, 4, inv=False)
+    results["int4_dots"].append({
+        "q": 1, "c": c, "d": d, "max_abs_err": err["int4_dots"],
+        "ms": time_ms(torch, lambda: i4.int4_dots(packed_t, wh[0], wl[0])),
+        "plain_ms": time_ms(torch, lambda: i4.int4_dots_plain(packed_t, wh[0], wl[0])),
+        "library_ms": time_ms(torch, lambda: int_mm(1)), "bound_ms": b, "bound_by": by,
+    })
+    b, by = bound(1, 4)
+    results["int4_scores"].append({
+        "q": 1, "c": c, "d": d, "max_abs_err": err["int4_scores"],
+        "ms": time_ms(torch, lambda: i4.int4_masked_scores(
+            packed_t, wh[0], wl[0], inv_n4, corrs[0], c)),
+        "plain_ms": time_ms(torch, lambda: i4.int4_masked_scores_plain(
+            packed_t, wh[0], wl[0], inv_n4, corrs[0], c)),
+        "library_ms": time_ms(torch, lambda: int_mm(1)), "bound_ms": b, "bound_by": by,
+    })
+    for q in (32, 64):
+        args = (packed_t, wh[:q], wl[:q], corrs[:q], inv_n4, c)
+        b, by = bound(q, 2)
+        results["int4_scores_batched"].append({
+            "q": q, "c": c, "d": d, "dtype": "bfloat16",
+            "max_abs_err": err["int4_scores_batched"],
+            "ms": time_ms(torch, lambda: i4.int4_masked_scores_batched(
+                *args, out_dtype=torch.bfloat16)),
+            "plain_ms": time_ms(torch, lambda: i4.int4_masked_scores_batched_plain(
+                *args, out_dtype=torch.bfloat16)),
+            "library_ms": time_ms(torch, lambda: int_mm(q)), "bound_ms": b, "bound_by": by,
+        })
+    del packed_t, inv_n4, unpacked
+    torch.cuda.empty_cache()
+
+
 # -- phase 4 ----------------------------------------------------------------
 
 
@@ -589,8 +770,6 @@ def _bulk_load(torch, backend, n_phash, n_multi, n_vec, dim, seed, dev,
     row's fingerprint is its f32 bytes, or `vec_fp_bytes` random bytes
     (an image record's 8-byte hash: a quarter of the host memory per
     row, measured on the CPU)."""
-    import numpy as np
-
     from ucfp_tpu_torch.ops import imagehash
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -700,7 +879,6 @@ def phase_served(torch, dev) -> dict:
     import numpy as np
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
-    from ucfp_tpu_torch.ops import fused_scan as fs
     from ucfp_tpu_torch.server.app import ServerState
     from ucfp_tpu_torch.server.auth import StaticSingleKey
 
@@ -721,7 +899,7 @@ def phase_served(torch, dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
 
         # ---- the main path: launch counts are read over exactly this block
-        fs.reset_launch_counts()
+        reset_counts()
         rng = np.random.default_rng(11)
         ingested = {}
         for i, algo in enumerate(("phash", "multi", "phash", "multi")):
@@ -808,7 +986,7 @@ def phase_served(torch, dev) -> dict:
                                                  "fingerprint_hex": ph})
         check(st == 200 and all(h["record_id"] != phash_rids[0] for h in res["hits"]),
               "deleted record no longer returned")
-        launches = dict(fs.LAUNCHES)
+        launches = read_counts()
         # ---- end of the main path
         check(all(launches[name] > 0 for name in ("scores_topk_fused_batched",
                                                    "hamming_topk_fused_batched")),
@@ -837,17 +1015,20 @@ def phase_served(torch, dev) -> dict:
 
 
 @contextlib.contextmanager
-def _plain_int8_path(torch):
-    """The int8 path's kernels and its product swapped for their plain
-    versions, so the backend answers a query the plain way on the same
-    device tensors."""
+def _plain_quant_path(torch):
+    """The int8 and int4 paths' kernels and the int8 product swapped for
+    their plain versions, so the backend answers a query the plain way on
+    the same device tensors."""
     from ucfp_tpu_torch.ops import fused_scan as fs
+    from ucfp_tpu_torch.ops import int4_scan as i4
     from ucfp_tpu_torch.ops import knn
 
     swaps = {(knn, "int8_dots"): lambda qq, q8m: int8_dots_plain(torch, qq, q8m)}
     for name in ("scores_topk_fused", "scores_topk_fused_batched",
                  "dots_norm_topk_fused", "dots_norm_topk_fused_batched"):
         swaps[(fs, name)] = getattr(fs, name + "_plain")
+    for name in ("int4_dots", "int4_masked_scores", "int4_masked_scores_batched"):
+        swaps[(i4, name)] = getattr(i4, name + "_plain")
     saved = {key: getattr(*key) for key in swaps}
     try:
         for (mod, name), fn in swaps.items():
@@ -865,9 +1046,9 @@ def _served_rows(body: dict, res: dict) -> list:
     return [_hit_rows(r["hits"]) for r in res["results"]]
 
 
-def _plain_int8_rows(torch, backend, body: dict) -> list:
+def _plain_quant_rows(torch, backend, body: dict) -> list:
     kw = {"filter": body.get("filter"), "exact": body.get("recall_tier") == "exact"}
-    with _plain_int8_path(torch):
+    with _plain_quant_path(torch):
         if "vector" in body:
             res = [asyncio.run(backend.knn(0, body["vector"], body["k"], **kw))]
         else:
@@ -904,7 +1085,6 @@ def phase_int8(torch, dev) -> dict:
     import numpy as np
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
-    from ucfp_tpu_torch.ops import fused_scan as fs
     from ucfp_tpu_torch.server.app import ServerState
     from ucfp_tpu_torch.server.auth import StaticSingleKey
 
@@ -933,7 +1113,7 @@ def phase_int8(torch, dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
 
         # ---- the main path: launch counts are read over exactly this block
-        fs.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         st, res, _ = call("POST", "/v1/query", {**base, "vector": vecs[0]})
         first_s = time.perf_counter() - t0  # builds the int8 device cache
@@ -948,7 +1128,7 @@ def phase_int8(torch, dev) -> dict:
                 times.append(ms)
             lat[form] = statistics.median(times)
             rows = _served_rows(body, res)
-            check(rows == _plain_int8_rows(torch, backend, body),
+            check(rows == _plain_quant_rows(torch, backend, body),
                   f"{form} hits == plain path")
             return res, rows
 
@@ -980,14 +1160,14 @@ def phase_int8(torch, dev) -> dict:
         body = {**base, "vector": [float(x) for x in emb + rng.normal(0, 0.01, DIM)]}
         st, res, _ = call("POST", "/v1/query", body)
         check(st == 200 and res["hits"][0]["record_id"] == rid, "upserted vector at rank 1")
-        check(_served_rows(body, res) == _plain_int8_rows(torch, backend, body),
+        check(_served_rows(body, res) == _plain_quant_rows(torch, backend, body),
               "after the row patch: hits == plain path")
         st, _, _ = call("DELETE", f"/v1/records/0/{rid}")
         check(st == 200, "delete")
         st, res, _ = call("POST", "/v1/query", body)
         check(st == 200 and all(h["record_id"] != rid for h in res["hits"]),
               "deleted vector no longer returned")
-        launches = dict(fs.LAUNCHES)
+        launches = read_counts()
         # ---- end of the main path
         check(all(launches[name] > 0 for name in (
             "scores_topk_fused_batched", "scores_topk_fused",
@@ -1018,7 +1198,6 @@ def phase_qbatch(torch, dev) -> dict:
     import numpy as np
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
-    from ucfp_tpu_torch.ops import fused_scan as fs
     from ucfp_tpu_torch.server.app import ServerState
     from ucfp_tpu_torch.server.auth import StaticSingleKey
 
@@ -1065,13 +1244,13 @@ def phase_qbatch(torch, dev) -> dict:
             check(send(body)[0] == 200, "warm-up query")
 
         # ---- the main path: launch counts are read over exactly this block
-        fs.reset_launch_counts()
+        reset_counts()
         f0, i0 = backend._qbatch_flushes, backend._qbatch_items
         with ThreadPoolExecutor(QBATCH_CLIENTS) as ex:
             t0 = time.perf_counter()
             got = list(ex.map(send, bodies))
             wall = time.perf_counter() - t0
-        launches = dict(fs.LAUNCHES)
+        launches = read_counts()
         flushes = backend._qbatch_flushes - f0
         items = backend._qbatch_items - i0
         # ---- end of the main path
@@ -1105,6 +1284,184 @@ def phase_qbatch(torch, dev) -> dict:
         _close_backend(torch, server, backend, tmp)
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+
+def phase_int4(torch, dev) -> dict:
+    """The int4 tier at phase 6's size, where the reference's cost model
+    serves all three int4 kernels: with batching off, the single and
+    batched forms, filtered and not, and the exact tier, each held against
+    the plain path; an upsert (the packed column patch), a query that
+    finds it and a delete; then micro-batched single queries (kernel #10
+    at each flush's size), each equal to the unbatched answer (#9)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.ops import knn
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+
+    n = INT4_ROWS - 1024  # served upserts land below the loaded capacity
+    k = 10
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-int4-")
+    os.environ["UCFP_QUERY_BATCH_MS"] = str(QBATCH_MS)
+    try:
+        backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev, knn_quant="int4")
+    finally:
+        del os.environ["UCFP_QUERY_BATCH_MS"]
+    server = None
+    clients = []
+    try:
+        check(backend._qbatch_ms == QBATCH_MS, "UCFP_QUERY_BATCH_MS read")
+        backend._qbatch_ms = 0.0  # off until the micro-batched block
+        load = _bulk_load(torch, backend, 0, 0, n, DIM, seed=10, dev=dev,
+                          model_ids=("m0", "m1"), vec_fp_bytes=8)
+        token = "smoke-token"
+        server = _ServerThread(ServerState(index=backend,
+                                           api_keys=StaticSingleKey(token)))
+        call = _Client(server.port, token)
+        clients.append(call)
+        vcache = backend._vec[(0, DIM)]
+        rng = np.random.default_rng(14)
+        picks = [int(x) for x in rng.integers(0, n, 32 + INT4_QBATCH_REQUESTS)]
+        vecs = [[float(x) for x in vcache.data[p] + rng.normal(0, 0.01, DIM)]
+                for p in picks]
+        want = [vcache.rids[p] for p in picks]
+        # bulk chunks of 2^15 rows alternate m0 / m1 (no deletes yet)
+        model = ["m0" if (p >> 15) % 2 == 0 else "m1" for p in picks]
+        base = {"tenant_id": 0, "modality": "image", "k": k}
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: launch counts are read over exactly this block
+        reset_counts()
+        t0 = time.perf_counter()
+        st, res, _ = call("POST", "/v1/query", {**base, "vector": vecs[0]})
+        first_s = time.perf_counter() - t0  # builds the int8 + packed int4 cache
+        check(st == 200, f"first int4 query: {st} {res}")
+        lat = {}
+
+        def served(form, body, reps=SERVED_REPS):
+            times = []
+            for _ in range(reps):
+                st, res, ms = call("POST", "/v1/query", body)
+                check(st == 200, f"{form}: {st} {res}")
+                times.append(ms)
+            lat[form] = statistics.median(times)
+            rows = _served_rows(body, res)
+            check(rows == _plain_quant_rows(torch, backend, body),
+                  f"int4 {form} hits == plain path")
+            return res, rows
+
+        res, rows = served("vector", {**base, "vector": vecs[0]})
+        check(rows[0][0][0] == want[0] and res.get("approximate") is True,
+              "int4 vector: rank 1, marked approximate")
+        res, rows = served("vectors", {**base, "vectors": vecs[:32]})
+        check([r[0][0] for r in rows] == want[:32] and res.get("approximate") is True,
+              "int4 vectors: 32 noisy stored vectors at rank 1, marked approximate")
+        res, rows = served("vector_filter", {**base, "vector": vecs[0],
+                                             "filter": {"model_id": model[0]}})
+        check(rows[0][0][0] == want[0], "int4 filtered vector at rank 1")
+        res, rows = served("vectors_filter", {**base, "vectors": vecs[:32],
+                                              "filter": {"model_id": "m0"}})
+        check(all(r[0][0] == w for r, w, m in zip(rows, want, model[:32]) if m == "m0"),
+              "int4 filtered batch: the m0 vectors at rank 1")
+        res, rows = served("vector_exact", {**base, "vector": vecs[0],
+                                            "recall_tier": "exact"})
+        check(rows[0][0][0] == want[0] and "approximate" not in res,
+              "int4 exact tier: rank 1, not marked approximate")
+
+        # an upsert after the cache exists takes the packed column patch
+        rid = 8 * 10**8
+        emb = rng.normal(0, 1, DIM)
+        st, res, _ = call("POST", "/v1/records", {"records": [{
+            "tenant_id": 0, "record_id": rid, "modality": "image",
+            "algorithm": SEM, "fingerprint": list(range(8)),
+            "embedding": [float(x) for x in emb], "model_id": "m1"}]})
+        check(st == 200, f"upsert: {st} {res}")
+        body = {**base, "vector": [float(x) for x in emb + rng.normal(0, 0.01, DIM)]}
+        st, res, _ = call("POST", "/v1/query", body)
+        check(st == 200 and res["hits"][0]["record_id"] == rid, "upserted vector at rank 1")
+        check(_served_rows(body, res) == _plain_quant_rows(torch, backend, body),
+              "after the packed column patch: hits == plain path")
+        st, _, _ = call("DELETE", f"/v1/records/0/{rid}")
+        check(st == 200, "delete")
+        st, res, _ = call("POST", "/v1/query", body)
+        check(st == 200 and all(h["record_id"] != rid for h in res["hits"]),
+              "deleted vector no longer returned")
+        unbatched_launches = read_counts()
+
+        # micro-batching: single vector requests from many clients at once
+        backend._qbatch_ms = float(QBATCH_MS)
+        local = threading.local()
+
+        def send(b):
+            if not hasattr(local, "call"):
+                local.call = _Client(server.port, token)
+                clients.append(local.call)
+            return local.call("POST", "/v1/query", b)
+
+        bodies = [{**base, "vector": v} for v in vecs[32:]]
+        f0, i0 = backend._qbatch_flushes, backend._qbatch_items
+        with ThreadPoolExecutor(QBATCH_CLIENTS) as ex:
+            t0 = time.perf_counter()
+            got = list(ex.map(send, bodies))
+            wall = time.perf_counter() - t0
+        flushes = backend._qbatch_flushes - f0
+        items = backend._qbatch_items - i0
+        batched_launches = read_counts()
+        backend._qbatch_ms = 0.0  # the same queries, one at a time
+        for b, (st, res, _) in zip(bodies, got):
+            check(st == 200 and res.get("approximate") is True,
+                  "micro-batched int4 answer, marked approximate")
+            st1, res1, _ = call("POST", "/v1/query", b)
+            check(st1 == 200 and res1["hits"] == res["hits"],
+                  "micro-batched int4 answer == unbatched answer")
+        launches = read_counts()
+        # ---- end of the main path
+        check(all(launches[name] > 0 for name in (
+            "int4_dots", "int4_masked_scores", "int4_masked_scores_batched",
+            "scores_topk_fused", "scores_topk_fused_batched")),
+            f"every kernel of the int4 path launched: {launches}")
+        mb = {name: batched_launches[name] - unbatched_launches[name]
+              for name in launches}
+        check(mb["int4_masked_scores_batched"] > 0 and mb["int4_masked_scores"] == 0,
+              f"micro-batched singles ride kernel #10 only: {mb}")
+        check([res["hits"][0]["record_id"] for _, res, _ in got] == want[32:],
+              "every micro-batched query finds its stored row at rank 1")
+        check(items == len(bodies) and flushes < len(bodies),
+              f"coalesced: {items} queries in {flushes} flushes")
+        peak_device = torch.cuda.max_memory_allocated() / 2**30
+
+        # the pack alone at the served size, and the patched columns equal
+        # to a fresh pack of the same rows
+        q8m, _, packed_t, inv_n4 = vcache.device[:4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pk, inv = knn.pack_int4_cols_chunked(q8m[:, :DIM])
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        check(torch.equal(pk, packed_t) and _same_bits(torch, inv, inv_n4),
+              "the patched packed columns == a fresh pack")
+        del pk, inv
+        out = {
+            "rows": vcache.n, "capacity": vcache.data.shape[0], "dim": DIM,
+            "load_s": load["vectors_s"], "first_query_s": first_s, "pack_s": pack_s,
+            "p50_ms": lat, "launches": launches, "micro_batched_launches": mb,
+            "qbatch": {"requests": len(bodies), "flushes": flushes,
+                       "items_per_flush": items / flushes,
+                       "requests_per_s": len(bodies) / wall},
+            "peak_device_gib": peak_device, "host_gib": host_gib(),
+        }
+        say("int4: " + json.dumps(out))
+        return out
+    finally:
+        for c in clients:
+            c.conn.close()
+        _close_backend(torch, server, backend, tmp)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1119,34 +1476,43 @@ def _findings_line(kernels: dict, served: list) -> dict:
     def pick(rows, **want):
         return next(r for r in rows if all(r[key] == v for key, v in want.items()))
 
+    scan, int4 = "pallas_scan.py", "pallas_int4.py"
     rows = (
-        ("scores_topk_fused_batched", 487, "scores",
+        ("scores_topk_fused_batched", scan, 487, "scores",
          pick(kernels["scores"], q=32, dtype="float32", ties=False), {"q": 32}),
-        ("hamming_topk_fused_batched", 163, "hamming",
+        ("hamming_topk_fused_batched", scan, 163, "hamming",
          pick(kernels["hamming"], q=32, w=2, ties=False), {"q": 32, "w": 2}),
-        ("scores_topk_fused", 314, "scores1",
+        ("scores_topk_fused", scan, 314, "scores1",
          pick(kernels["scores1"], c=INT8_ROWS, largest=True, ties=False), {"q": 1}),
-        ("dots_norm_topk_fused", 261, "dots_norm",
+        ("dots_norm_topk_fused", scan, 261, "dots_norm",
          pick(kernels["dots_norm"], c=INT8_ROWS, ties=False), {"q": 1}),
-        ("dots_norm_topk_fused_batched", 422, "dots_norm_batched",
+        ("dots_norm_topk_fused_batched", scan, 422, "dots_norm_batched",
          pick(kernels["dots_norm_batched"], c=INT8_ROWS, q=32, ties=False), {"q": 32}),
+        ("int4_masked_scores", int4, 144, "int4_scores",
+         pick(kernels["int4_scores"], c=INT4_ROWS), {"q": 1, "d": DIM}),
+        ("int4_masked_scores_batched", int4, 210, "int4_scores_batched",
+         pick(kernels["int4_scores_batched"], c=INT4_ROWS, q=32),
+         {"q": 32, "d": DIM, "dtype": "bfloat16"}),
+        ("int4_dots", int4, 79, "int4_dots",
+         pick(kernels["int4_dots"], c=INT4_ROWS), {"q": 1, "d": DIM}),
     )
     return {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "ucfp_tpu_torch/csrc/fused_scan.cu",
-         "replaces": f"ucfp_tpu/ops/pallas_scan.py:{line}",
+         "source": "ucfp_tpu_torch/csrc/" + ("int4_scan.cu" if path == int4
+                                             else "fused_scan.cu"),
+         "replaces": f"ucfp_tpu/ops/{path}:{line}",
          "launches": launches.get(name),
          "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
          **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "shape": {**shape, "c": row["c"]}}
-        for name, line, key, row, shape in rows
+        for name, path, line, key, row, shape in rows
     ]}
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
-                   default="device,build,kernels,conformance,served,int8,qbatch")
+                   default="device,build,kernels,conformance,served,int8,qbatch,int4")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -1170,7 +1536,7 @@ def main() -> int:
         phase_conformance(dev)
     served = []
     for name, phase in (("served", phase_served), ("int8", phase_int8),
-                        ("qbatch", phase_qbatch)):
+                        ("qbatch", phase_qbatch), ("int4", phase_int4)):
         if name in phases:
             served.append(phase(torch, dev))
     if kernels is not None:

@@ -221,7 +221,7 @@ def test_out_of_slice_writes_are_refused(tmp_path):
     t2.close()
 
 
-@pytest.mark.parametrize("mode", ["sketch", "int4", "int2"])
+@pytest.mark.parametrize("mode", ["sketch", "int2"])
 def test_quantized_tiers_are_refused(tmp_path, monkeypatch, mode):
     monkeypatch.setenv("UCFP_KNN_QUANT", mode)
     with pytest.raises(UnsupportedError, match=mode):

@@ -14,19 +14,24 @@ Device side: the caches live on one torch device (the CUDA card unless
 the caller names another) as float32 vectors and int32 tensors holding
 the u32 fingerprint words; under UCFP_KNN_QUANT=int8 (or knn_quant=
 "int8") the vector caches live as per-row int8 rows plus their norms
-instead (ops.knn.quantize_rows_int8). Queries run ops.knn (exact paths
-and the int8 product), ops.fused_scan (the CUDA candidate scans, at
-capacities of 32,768 rows or more) and
-ops.imagehash.multihash_weighted_topk. Row patches update the device
-tensors in place (saving a catalog copy per write); all work runs on one
-stream in launch order, so a query sees whole rows.
+instead (ops.knn.quantize_rows_int8), and under int4 as those plus the
+packed int4 columns and their inverse norms (ops.knn.pack_int4_cols,
+packed on the device). Queries run ops.knn (exact paths, the int8
+product and the int4 prefilter pipelines), ops.fused_scan (the CUDA
+candidate scans, at capacities of 32,768 rows or more), ops.int4_scan
+(the packed scans) and ops.imagehash.multihash_weighted_topk. The int4
+tier serves where the reference's cost model says it beats the exact
+int8 path (ops.knn.int4_beats_exact, int4_batch_beats_exact), so both
+packages serve the same tier. Row patches update the device tensors in
+place (saving a catalog copy per write); all work runs on one stream in
+launch order, so a query sees whole rows.
 
 Query micro-batching (UCFP_QUERY_BATCH_MS > 0) coalesces concurrent
 plain knn() and knn_fingerprint() calls into one knn_batch /
 knn_fingerprint_batch dispatch per bucket, as the reference does.
 
-Not in this slice (later ports): sharding, the sketch / int4 / int2
-tiers (they raise UnsupportedError), LSH / BM25 / audio indexes, and
+Not in this slice (later ports): sharding, the sketch and int2 tiers
+(they raise UnsupportedError), LSH / BM25 / audio indexes, and
 autocompaction. Records that need one of those indexes — text (BM25) or
 the LSH, audio-landmark and haitsma algorithms — are refused on write,
 and a data directory that holds them raises UnsupportedError on open
@@ -68,7 +73,7 @@ HAITSMA_ALGORITHM = "audiofp-haitsma-v1"
 LATER_SLICE_ALGOS = frozenset((LSH_ALGORITHM, *AUDIO_LANDMARK_ALGOS,
                                HAITSMA_ALGORITHM))
 #: the UCFP_KNN_QUANT modes this build serves
-SERVED_QUANT = ("none", "int8")
+SERVED_QUANT = ("none", "int8", "int4")
 
 
 def _record_event(rec: Record) -> dict:
@@ -263,7 +268,8 @@ class EmbeddedBackend(IndexBackend):
         self.device = resolve_device(device)
         # "none" = exact f32 cosine; "int8" = per-row symmetric int8 rows
         # (a quarter of the f32 bytes; scores are cosines of the quantized
-        # vectors). Also settable via UCFP_KNN_QUANT.
+        # vectors); "int4" = int8 plus a packed int4 prefilter whose pool
+        # is rescored over the int8 rows. Also settable via UCFP_KNN_QUANT.
         self.knn_quant = (knn_quant or os.environ.get("UCFP_KNN_QUANT", "none")).lower()
         if self.knn_quant not in SERVED_QUANT:
             raise UnsupportedError(
@@ -277,6 +283,10 @@ class EmbeddedBackend(IndexBackend):
         # queries at once. Filtered, exact and pool_frac queries bypass it.
         self._qbatch_ms = float(os.environ.get("UCFP_QUERY_BATCH_MS", "0") or 0)
         self._qbatch_max = max(1, int(os.environ.get("UCFP_QBATCH_MAX", "64") or 64))
+        # the reference pads each flush to a power of two ("max": to
+        # UCFP_QBATCH_MAX); the port does not pad, but dispatches a flush
+        # as at the padded size, since the int4 batch dispatch depends on it
+        self._qbatch_pad = os.environ.get("UCFP_QBATCH_PAD", "pow2").lower()
         # kind ("vec"/"fp") -> {event loop -> DeadlineBatcher}
         self._batchers: dict[str, dict] = {}
         # flushes and total queries through the micro-batchers since boot
@@ -913,8 +923,15 @@ class EmbeddedBackend(IndexBackend):
         build on first use or capacity growth, otherwise only the rows
         touched since the last sync, quantized on the host. D8 pads the
         width with zero columns for the int8 product (ops.knn.padded_dim);
-        the host cache and the WAL keep D."""
+        the host cache and the WAL keep D.
+
+        Under int4 with an even D the reference's 5-tuple (q8m, row_norm,
+        packed_t [D/2, cap] int8, inv_n4 [cap] f32, valid): the packed
+        columns are packed on the device from q8m[:, :D] and patched
+        column by column after small writes. Odd dims get no packed parts
+        (the dispatch serves them exact)."""
         cap, dim = cache.data.shape
+        packed = self._int4_on() and dim % 2 == 0
         if cache.dirty or cache.device is None:
             cache.device = None  # the old copy can go before the new one lands
             q8m = torch.zeros((cap, knn_ops.padded_dim(dim)), dtype=torch.int8,
@@ -925,19 +942,55 @@ class EmbeddedBackend(IndexBackend):
                 q8, rn = knn_ops.quantize_rows_int8(cache.data[lo:hi])
                 q8m[lo:hi, :dim] = torch.from_numpy(q8).to(self.device)
                 row_norm[lo:hi] = torch.from_numpy(rn).to(self.device)
-            cache.device = (q8m, row_norm, self._device_valid(cap, cache.n))
+            parts = [q8m, row_norm]
+            if packed and cap > 2 * knn_ops.INT4_MIN_POOL:
+                parts += knn_ops.pack_int4_cols_chunked(q8m[:, :dim])
+            elif packed:
+                # at or below 2 * INT4_MIN_POOL every k gives pool * 2 >=
+                # cap, so no query reads the packed columns: zero-width
+                # placeholders keep the layout (growth rebuilds in full)
+                parts += [torch.zeros((dim // 2, 0), dtype=torch.int8, device=self.device),
+                          torch.zeros(0, dtype=torch.float32, device=self.device)]
+            cache.device = (*parts, self._device_valid(cap, cache.n))
             cache.dirty = False
             cache.pending = []
         elif cache.pending:
             rows = sorted(set(cache.pending))
             q8, rn = knn_ops.quantize_rows_int8(cache.data[rows])
-            q8m, row_norm, _v = cache.device
+            q8m, row_norm = cache.device[0], cache.device[1]
             ridx = torch.as_tensor(rows, device=self.device)
-            q8m[ridx, :dim] = torch.from_numpy(q8).to(self.device)  # in place
+            q8d = torch.from_numpy(q8).to(self.device)
+            q8m[ridx, :dim] = q8d  # in place
             row_norm[ridx] = torch.from_numpy(rn).to(self.device)
-            cache.device = (q8m, row_norm, self._device_valid(cap, cache.n))
+            parts = [q8m, row_norm]
+            if packed:
+                packed_t, inv_n4 = cache.device[2], cache.device[3]
+                if packed_t.shape[1]:  # real columns: catalog row i is column i
+                    pk, inv = knn_ops.pack_int4_cols(q8d)
+                    packed_t[:, ridx] = pk
+                    inv_n4[ridx] = inv
+                parts += [packed_t, inv_n4]
+            cache.device = (*parts, self._device_valid(cap, cache.n))
             cache.pending = []
         return cache.device
+
+    def _int4_on(self) -> bool:
+        return self.knn_quant == "int4"
+
+    def _int4_worth_it(self, cap: int, dim: int, k: int, fused: bool = True) -> bool:
+        """The reference's gate for the single-query int4 prefilter: the
+        cost model must prefer it to the exact int8 scan at this capacity
+        (fused=False models the filtered form)."""
+        return knn_ops.int4_beats_exact(cap, dim, knn_ops.int4_pool(cap, k), fused=fused)
+
+    def _int4_batch_worth_it(self, cap: int, dim: int, k: int, q: int) -> bool:
+        """The reference's gate for the batched int4 prefilter: a real
+        packed cache (the batch pool is smaller than the single one, so
+        its own exhaustive branch does not cover every placeholder
+        capacity) and a cost model that prefers it for q queries."""
+        if cap <= 2 * knn_ops.INT4_MIN_POOL:
+            return False  # zero-width placeholder packed cache
+        return knn_ops.int4_batch_beats_exact(cap, dim, q, knn_ops.int4_batch_pool(cap, k))
 
     def _device_rows(self, cache: _RowCache) -> tuple:
         """(matrix, valid) on the device — the reference's _device_vec
@@ -967,19 +1020,37 @@ class EmbeddedBackend(IndexBackend):
         return cap % tile == 0 and min(k, n) <= min(16, n_candidates)
 
     def knn_is_approximate(self, tenant_id: int, dim: int, k: int,
-                           exact: bool = False) -> bool:
-        """True when a (dim, k) vector query rides the fused candidate
-        path (near-exact for k <= 16, exact top-1), so the serving layer
-        marks the response. Single and batched queries take the same
-        rule under "none" and "int8" (the reference's marker ends in the
-        same _fused_pool_ok for both), so one marker serves both."""
+                           batch: bool = False,
+                           pool_frac: "float | None" = None,
+                           exact: bool = False,
+                           batch_q: int = 1,
+                           filtered: bool = False) -> bool:
+        """True when a (dim, k) vector query rides an approximate path —
+        the fused candidate cells (near-exact for k <= 16, exact top-1)
+        or an int4 pool that does not cover the catalog — so the serving
+        layer marks the response. The reference's rules: batch=True
+        mirrors knn_batch's dispatch for `batch_q` queries (filtered
+        batches stay on the int8 path); a single query that
+        micro-batching may coalesce is judged at the worst case, a full
+        64-query flush. Every rule gates on min(k, n), as the dispatch
+        does."""
         if exact:
             return False
         cache = self._vec.get((tenant_id, dim))
         if cache is None or cache.n == 0 or cache.data is None:
             return False
-        return self._fused_pool_ok(cache.data.shape[0], cache.n,
-                                   min(k, cache.n))
+        kk = min(k, cache.n)
+        cap = cache.data.shape[0]
+        if self._int4_on():
+            if batch and not filtered and self._int4_batch_worth_it(cap, dim, kk, batch_q):
+                return knn_ops.int4_batch_pool(cap, kk) * 2 < cap
+            if (not batch and self._qbatch_ms > 0 and pool_frac is None
+                    and self._int4_batch_worth_it(cap, dim, kk, 64)
+                    and knn_ops.int4_batch_pool(cap, kk) * 2 < cap):
+                return True
+            if not batch and self._int4_worth_it(cap, dim, kk):
+                return knn_ops.int4_pool(cap, kk) * 2 < cap
+        return self._fused_pool_ok(cap, cache.n, kk)
 
     def fingerprint_is_approximate(self, tenant_id: int, algorithm: str,
                                    k: int) -> bool:
@@ -1007,12 +1078,12 @@ class EmbeddedBackend(IndexBackend):
                     for i in idx.reshape(-1)[keep.reshape(-1)]}
 
     def _snapshot(self, cache: _RowCache, attempt: int, last: int,
-                  flt_mask=True, int8: bool = False):
+                  flt_mask=True, quant: bool = False):
         """Device tensors + (gen, rid copy on the final attempt, n), all
         under the lock (see the reference's knn for why n and gen must be
         read together). The filter mask is ANDed into the validity mask,
         the last device tensor."""
-        dev = self._device_int8(cache) if int8 else self._device_rows(cache)
+        dev = self._device_int8(cache) if quant else self._device_rows(cache)
         if flt_mask is not True:
             dev = (*dev[:-1], dev[-1] & torch.as_tensor(flt_mask, device=self.device))
         rids_copy = list(cache.rids) if attempt == last else None
@@ -1055,9 +1126,12 @@ class EmbeddedBackend(IndexBackend):
     async def knn_batch(
         self, tenant_id: int, queries: list[list[float]], k: int,
         filter: Optional[dict] = None, exact: bool = False,
+        dispatch_q: Optional[int] = None,
     ) -> list[list[Hit]]:
         """Batched cosine top-k: all queries share ONE device product.
-        Zero-norm queries get empty lists."""
+        Zero-norm queries get empty lists. dispatch_q: the batch size the
+        int4 dispatch is judged at (default the batch's own; a micro-batch
+        flush passes the reference's padded size)."""
         if k == 0 or not queries:
             return [[] for _ in queries]
         dims = {len(q) for q in queries}
@@ -1076,7 +1150,8 @@ class EmbeddedBackend(IndexBackend):
             from .backend import validate_filter
 
             validate_filter(filter)
-        res = await self._knn_rows(cache, qm, k, filter, exact)
+        res = await self._knn_rows(cache, qm, k, filter, exact,
+                                   dispatch_q=dispatch_q or qm.shape[0])
         return [[] if float(np.linalg.norm(qm[row])) == 0.0 else hits
                 for row, hits in enumerate(res)]
 
@@ -1130,10 +1205,37 @@ class EmbeddedBackend(IndexBackend):
         sc = torch.where(ok, dots.float() / denom, knn_ops.NEG_INF)
         return fused_scan.scores_topk_fused_batched(sc, kk)
 
+    def _quant_topk(self, qm: np.ndarray, dev: tuple, kk: int, n: int, exact: bool,
+                    unfiltered: bool, single: bool, dispatch_q: int):
+        """The reference's quantized dispatch: the int4 prefilter where its
+        gate passes (single: fused when unfiltered, the dots kernel plus a
+        mask when filtered; batch: unfiltered only), else the int8 path."""
+        cap, dim = dev[0].shape[0], qm.shape[1]
+        # unfiltered queries: validity is the prefix rule, which the fused
+        # kernels apply in-stream
+        n_prefix = n if unfiltered else None
+        if self._int4_on() and not exact:
+            if single and self._int4_worth_it(cap, dim, kk, fused=unfiltered):
+                q8m, row_norm, packed_t, inv_n4, valid = dev
+                s1, i1 = knn_ops.cosine_int4_topk(
+                    torch.from_numpy(qm[0]).to(self.device), q8m, row_norm, packed_t,
+                    inv_n4, valid, kk, knn_ops.int4_pool(cap, kk), n_valid=n_prefix)
+                return s1[None, :], i1[None, :]
+            if (not single and unfiltered
+                    and self._int4_batch_worth_it(cap, dim, kk, dispatch_q)):
+                q8m, row_norm, packed_t, inv_n4, _valid = dev
+                return knn_ops.cosine_int4_topk_batched(
+                    torch.from_numpy(qm).to(self.device), q8m, row_norm, packed_t,
+                    inv_n4, n, kk, knn_ops.int4_batch_pool(cap, kk))
+        q8m, row_norm, valid = dev[0], dev[1], dev[-1]
+        topk = self._int8_single_topk if single else self._int8_batch_topk
+        return topk(qm[0] if single else qm, q8m, row_norm, valid, kk, n, exact, n_prefix)
+
     async def _knn_rows(self, cache: _RowCache, qm: np.ndarray, k: int,
                         filter: Optional[dict], exact: bool,
-                        single: bool = False) -> list[list[Hit]]:
-        int8 = self.knn_quant == "int8"
+                        single: bool = False,
+                        dispatch_q: int = 1) -> list[list[Hit]]:
+        quant = self.knn_quant in ("int8", "int4")
 
         def work(_attempt=0, _last=2):
             with self._lock:
@@ -1144,16 +1246,11 @@ class EmbeddedBackend(IndexBackend):
                 if flt_mask is None:
                     return [[] for _ in range(qm.shape[0])]
                 dev, gen_snap, rids_copy, n_snap = self._snapshot(
-                    cache, _attempt, _last, flt_mask, int8=int8)
+                    cache, _attempt, _last, flt_mask, quant=quant)
             kk = min(k, n_snap)
-            if int8:
-                q8m, row_norm, valid = dev
-                # unfiltered queries: validity is the prefix rule, which
-                # the dots-norm kernels apply in-stream
-                n_prefix = n_snap if flt_mask is True else None
-                topk = self._int8_single_topk if single else self._int8_batch_topk
-                scores, idx = topk(qm[0] if single else qm, q8m, row_norm, valid,
-                                   kk, n_snap, exact, n_prefix)
+            if quant:
+                scores, idx = self._quant_topk(qm, dev, kk, n_snap, exact,
+                                               flt_mask is True, single, dispatch_q)
             else:
                 matrix, valid = dev
                 qd = torch.from_numpy(qm).to(self.device)
@@ -1182,9 +1279,10 @@ class EmbeddedBackend(IndexBackend):
     # -- query micro-batching ---------------------------------------------------
     #
     # The reference pads each flush to a power of two (UCFP_QBATCH_PAD)
-    # only to bound XLA's compiles per shape; the padded rows are sliced
-    # off, so no answer depends on them, and PyTorch compiles nothing per
-    # shape: the port runs each flush at its own size.
+    # to bound XLA's compiles per shape; the padded rows are sliced off,
+    # and PyTorch compiles nothing per shape, so the port runs each flush
+    # at its own size. The batch size still picks the int4 tier (its cost
+    # model takes Q), so a flush is dispatched as at the padded size.
 
     def _deadline_batcher(self, kind: str, run):
         """Per-event-loop DeadlineBatcher registry: a batcher holds
@@ -1210,10 +1308,17 @@ class EmbeddedBackend(IndexBackend):
             self._qbatch_flushes += 1
             self._qbatch_items += len(payloads)
 
+    def _padded_flush(self, n: int) -> int:
+        """The size of the reference's padded flush of n queries."""
+        if self._qbatch_pad == "max":
+            return self._qbatch_max
+        return 1 << (n - 1).bit_length() if n > 1 else 1
+
     async def _run_vec_bucket(self, bucket, payloads):
         t, _dim, kk = bucket
         self._note_flush(payloads)
-        return await self.knn_batch(t, payloads, kk)
+        return await self.knn_batch(t, payloads, kk,
+                                    dispatch_q=self._padded_flush(len(payloads)))
 
     async def _submit_query_batched(self, tenant_id: int, query: list,
                                     k: int) -> list[Hit]:

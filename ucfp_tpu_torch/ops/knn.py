@@ -8,7 +8,12 @@
     32,768 rows or more;
   * the int8 tier: quantize_rows_int8 (host, numpy), the query
     quantization _quantize_query_rows, the exact int8 product int8_dots
-    and the exhaustive cosine_topk_int8.
+    and the exhaustive cosine_topk_int8;
+  * the packed-int4 tier: pack_int4_cols{,_chunked} (on the device, from
+    the resident int8 rows), the prefilter pipelines cosine_int4_topk
+    and cosine_int4_topk_batched (packed scan in ops.int4_scan, candidate
+    selection, exact int8 rescore of the pool) and the dispatch cost
+    model that decides where the tier serves.
 
 Semantics match the reference: score = dot / (|q| * |v|); invalid and
 zero-norm rows score -inf; invalid Hamming rows score 0x7fffffff; ties
@@ -19,9 +24,11 @@ int8 scores are bit-equal to the reference's for D <= 1040: every dot is
 an int8 x int8 sum of at most 127^2 * D < 2^24, every squared norm too,
 so float32 holds each exactly whatever the summation order; what is left
 is one sqrt, one division and one multiplication, each correctly rounded
-on the CPU and on CUDA (the kernels build without --use_fast_math). On
-CUDA, PyTorch divides by a CPU scalar as a multiplication by its
-reciprocal, so every division here has a tensor divisor.
+on the CPU and on CUDA (the kernels build without --use_fast_math; the
+sqrt goes through float64, _sqrt_f32). On CUDA, PyTorch divides by a CPU
+scalar as a multiplication by its reciprocal, so every division here has
+a tensor divisor. The int4 tier's scores are int8 cosines of the same
+kind.
 
 Storage: catalogs are int32 tensors holding the u32 bit patterns (PyTorch's
 uint32 supports few operations); bitwise ops on the patterns are the same.
@@ -29,10 +36,12 @@ uint32 supports few operations); bitwise ops on the patterns are the same.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from . import fused_scan
+from . import fused_scan, int4_scan
 from .fused_scan import _popcount32
 
 NEG_INF = float("-inf")
@@ -121,10 +130,17 @@ def _quantize_query_rows(qm: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(qm / qs), -127, 127).to(torch.int8)
 
 
+def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, as XLA's and CUDA's are. PyTorch's
+    vectorized float32 sqrt on the CPU can miss by an ulp; a float64 sqrt
+    rounded to float32 is the correctly rounded result."""
+    return torch.sqrt(x.double()).float()
+
+
 def int8_norms(qq: torch.Tensor) -> torch.Tensor:
     """[Q, D] int8 -> [Q] f32 |row|: an exact integer sum, then sqrt."""
     f = qq.float()
-    return torch.sqrt((f * f).sum(dim=1))
+    return _sqrt_f32((f * f).sum(dim=1))
 
 
 #: the smallest row count torch._int_mm takes on CUDA (checked on the
@@ -183,6 +199,278 @@ def cosine_topk_int8(query: torch.Tensor, q8: torch.Tensor,
     ok = valid[None, :] & (row_norm[None, :] > 0.0) & (q_norm > 0.0)
     safe = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     return _topk_stable(torch.where(ok, dots / safe, NEG_INF), k, largest=True)
+
+
+# -- packed-int4 prefilter + exact int8 rescore -------------------------------
+#
+# UCFP_KNN_QUANT=int4: each int8 row is re-quantized to int4 and packed two
+# dims per byte, column-major ([D/2, C] int8: dim j in byte j's high nibble,
+# two's complement; dim j + D/2 in its low nibble, biased +8). The packed
+# scan (ops.int4_scan) reads half the int8 catalog's bytes; its top `pool`
+# candidates are rescored exactly over the int8 rows. The rescore's float32
+# sums are sums of integers below 2^24, so they are exact in any order
+# (TF32 stays off), and the scores equal the reference's bit for bit.
+
+INT4_MIN_POOL = 2048
+INT4_BATCH_QB = 64  # the reference's batched weight-block height (cost model)
+
+
+def int4_pool(n: int, k: int) -> int:
+    """Rescore-pool size of the single-query int4 prefilter."""
+    return min(n, max(INT4_MIN_POOL, 64 * k))
+
+
+def int4_batch_pool(n: int, k: int) -> int:
+    """Rescore-pool size of the batched int4 prefilter."""
+    return min(n, max(512, 64 * k))
+
+
+def int4_supported(cap: int, dim: int) -> bool:
+    """Even dim (nibble pairs) and a 128-multiple capacity."""
+    return dim % 2 == 0 and cap >= 128 and cap % 128 == 0
+
+
+def _quantize_query(query: torch.Tensor) -> torch.Tensor:
+    """[D] f32 -> [D] int8, the reference's single-query rule (the scale
+    is a tensor: see the module doc on CUDA division)."""
+    qa = query.abs().amax()
+    qs = torch.where(qa == 0.0, torch.ones_like(qa), qa / torch.full_like(qa, 127.0))
+    return torch.clamp(torch.round(query / qs), -127, 127).to(torch.int8)
+
+
+def _pack_int4_rows(q8m: torch.Tensor):
+    f = q8m.float()
+    absmax = f.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                        absmax / torch.full_like(absmax, 7.0))
+    q4 = torch.clamp(torch.round(f / scale), -7, 7).to(torch.int32)
+    dp = q8m.shape[1] // 2
+    packed_t = ((q4[:, :dp] << 4) | (q4[:, dp:] + 8)).to(torch.int8).T
+    n4 = _sqrt_f32((q4.float() ** 2).sum(dim=1))
+    inv_n4 = torch.where(n4 > 0.0, torch.ones_like(n4) / torch.clamp(n4, min=1e-9),
+                         torch.zeros_like(n4))
+    return packed_t, inv_n4
+
+
+def pack_int4_cols(q8m: torch.Tensor):
+    """[C, D] int8 rows (D even) -> (packed_t [D/2, C] int8, inv_n4 [C] f32
+    = 1/|int4 row|, 0 for zero rows). Per-row symmetric int4
+    re-quantization (scale absmax/7; it cancels in the cosine). Runs on
+    the rows' device."""
+    packed_t, inv_n4 = _pack_int4_rows(q8m)
+    return packed_t.contiguous(), inv_n4
+
+
+def pack_int4_cols_chunked(q8m: torch.Tensor, chunk: int = 1 << 18):
+    """pack_int4_cols over `chunk`-row blocks written into the outputs in
+    place, so the float temporaries stay one block, not a catalog copy.
+    Row-wise math: bit-identical to the one-shot pack."""
+    n, d = q8m.shape
+    if n <= chunk:
+        return pack_int4_cols(q8m)
+    packed_t = torch.empty((d // 2, n), dtype=torch.int8, device=q8m.device)
+    inv_n4 = torch.empty(n, dtype=torch.float32, device=q8m.device)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        packed_t[:, lo:hi], inv_n4[lo:hi] = _pack_int4_rows(q8m[lo:hi])
+    return packed_t, inv_n4
+
+
+def _exact_topk_flat(scores: torch.Tensor, k: int):
+    """Exact top-k over a flat [P] vector: the reference's segmented
+    top-k returns what one stable top-k over all P returns."""
+    v, i = _topk_stable(scores[None], min(k, scores.shape[0]), largest=True)
+    return v[0], i[0]
+
+
+def _exact_topk_rows(scores: torch.Tensor, k: int):
+    """Per-row exact top-k over [Q, P] (the batched _exact_topk_flat)."""
+    return _topk_stable(scores, min(k, scores.shape[1]), largest=True)
+
+
+def _rescore_exact(q8: torch.Tensor, cidx: torch.Tensor, slot_ok: torch.Tensor,
+                   query: torch.Tensor, k: int):
+    """Exact int8 cosine over the gathered pool rows, in pool order (ties
+    go to the lower pool position, as in the reference); row norms are
+    recomputed from the gathered rows. q8 may carry zero columns past the
+    query's width."""
+    d = query.shape[0]
+    rows = q8[cidx.long(), :d].float()  # [P, D]
+    qq = _quantize_query(query).float()
+    dots = rows @ qq
+    qn = _sqrt_f32((qq * qq).sum())
+    rn = _sqrt_f32((rows * rows).sum(dim=1))
+    denom = torch.clamp(qn, min=1e-9) * torch.clamp(rn, min=1e-9)
+    ok = slot_ok & (rn > 0.0)
+    s, p = _exact_topk_flat(torch.where(ok, dots / denom, NEG_INF), k)
+    return s, cidx[p]
+
+
+def _rescore_exact_batched(q8: torch.Tensor, cidx: torch.Tensor,
+                           slot_ok: torch.Tensor, qq_f32: torch.Tensor, k: int):
+    """Per-query exact int8 cosine over [Q, P] gathered pools (the rules
+    of _rescore_exact); qq_f32 holds the already-quantized queries."""
+    q, p = cidx.shape
+    d = qq_f32.shape[1]
+    rows = q8[cidx.reshape(-1).long(), :d].float().reshape(q, p, d)
+    dots = torch.bmm(rows, qq_f32[:, :, None])[:, :, 0]  # [Q, P]
+    qn = _sqrt_f32((qq_f32 * qq_f32).sum(dim=1, keepdim=True))
+    rn = _sqrt_f32((rows * rows).sum(dim=2))
+    denom = torch.clamp(qn, min=1e-9) * torch.clamp(rn, min=1e-9)
+    ok = slot_ok & (rn > 0.0)
+    s, pos = _topk_stable(torch.where(ok, dots / denom, NEG_INF), min(k, p), largest=True)
+    return s, torch.gather(cidx, 1, pos)
+
+
+def _fused_candidates_ok(c: int, pool: int) -> bool:
+    """Whether the per-(tile, lane) candidate scan can feed a pool: whole
+    tiles and at least two candidates per pool slot."""
+    tile_rows = fused_scan.ROWS_PER_TILE * fused_scan.LANES
+    return c % tile_rows == 0 and (c // tile_rows) * fused_scan.LANES >= 2 * pool
+
+
+def cosine_int4_topk(query: torch.Tensor, q8: torch.Tensor, row_norm: torch.Tensor,
+                     packed_t: torch.Tensor, inv_n4: torch.Tensor,
+                     valid: torch.Tensor, k: int, pool: int,
+                     n_valid: int | None = None):
+    """Packed-int4-prefilter cosine top-k: query [D] f32, q8 [C, D8 >= D]
+    int8, row_norm [C], packed_t [D/2, C] int8, inv_n4 [C] f32, valid [C]
+    bool (validity AND any filter) -> ([k] exact int8 cosines of the
+    rescored pool, [k] rows). n_valid asserts valid == arange < n_valid
+    and selects the fused masked-scores kernel; without it, the
+    uncorrected dots kernel plus a mask pass."""
+    c = q8.shape[0]
+    if pool * 2 >= c:
+        # the pool covers (most of) the catalog: exhaustive exact rescore
+        ok = valid & (row_norm > 0.0)
+        return _rescore_exact(q8, torch.arange(c, device=q8.device), ok, query, k)
+    qq = _quantize_query(query)
+    dp = query.shape[0] // 2
+    qh, ql = qq[:dp], qq[dp:]
+    corr = 8 * ql.to(torch.int32).sum(dtype=torch.int32)
+    if n_valid is not None:
+        s4 = int4_scan.int4_masked_scores(packed_t, qh, ql, inv_n4, corr, n_valid)
+    else:
+        ok = valid & (row_norm > 0.0)
+        dots = int4_scan.int4_dots(packed_t, qh, ql)
+        s4 = torch.where(ok, (dots - corr).float() * inv_n4, NEG_INF)
+    if _fused_candidates_ok(c, pool):
+        vals, gidx = fused_scan.scores_topk_fused(s4, pool)
+    else:
+        vals, gidx = _exact_topk_flat(s4, pool)
+    return _rescore_exact(q8, gidx, vals > NEG_INF, query, k)
+
+
+def cosine_int4_topk_batched(queries: torch.Tensor, q8: torch.Tensor,
+                             row_norm: torch.Tensor, packed_t: torch.Tensor,
+                             inv_n4: torch.Tensor, n_valid: int, k: int, pool: int):
+    """Batched packed-int4-prefilter cosine top-k over prefix validity
+    (valid == arange < n_valid; filtered batches take the int8 path):
+    one packed scan for the whole block with bf16 scores, per-query
+    candidate selection and one batched exact rescore -> ([Q, k], [Q, k]),
+    per row what cosine_int4_topk's contract gives."""
+    c = q8.shape[0]
+    qq = _quantize_query_rows(queries)
+    if pool * 2 >= c:
+        # the exhaustive int8 product is cheaper than scan + full rescore
+        valid = torch.arange(c, device=q8.device) < n_valid
+        return cosine_topk_int8(queries, q8, row_norm, valid, k)
+    dp = queries.shape[1] // 2
+    wh, wl = qq[:, :dp], qq[:, dp:]
+    corrs = 8 * wl.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    s4 = int4_scan.int4_masked_scores_batched(packed_t, wh, wl, corrs, inv_n4,
+                                              n_valid, out_dtype=torch.bfloat16)
+    if _fused_candidates_ok(c, pool):
+        # approx=True is an exact selection in the port (fused_scan doc)
+        vals, gidx = fused_scan.scores_topk_fused_batched(s4, pool, approx=True)
+    else:
+        vals, gidx = _exact_topk_rows(s4.float(), pool)
+    return _rescore_exact_batched(q8, gidx, vals.float() > NEG_INF, qq.float(), k)
+
+
+# -- dispatch cost model --------------------------------------------------------
+#
+# The reference's dispatch constants and formulas, value for value: the
+# int4 tier serves only where this model says it beats the exact int8
+# path, and the port keeps the reference's numbers so that it serves the
+# same tier, and so gives the same hits and the same `approximate` mark,
+# as the reference. They were fitted to the reference's hardware, not to
+# this port's; refitting them changes answers and is separate work.
+# UCFP_COST_<NAME> overrides a constant; UCFP_SKETCH_COST_MODEL=0 turns
+# the model off (the tier then serves wherever its kernels apply).
+
+_COST_DEFAULTS = {
+    "hbm_gbps": 819.0,
+    "gather_ns": 13.0,
+    "int4b_gbps": 600.0,
+    "int4b_flat_ms": 1.5,
+    "int4_gbps": 730.0,
+    "int4_flat_ms": 0.15,
+}
+
+
+def _cost_const(name: str) -> float:
+    return float(os.environ.get(f"UCFP_COST_{name.upper()}", "") or _COST_DEFAULTS[name])
+
+
+def _cost_model_on() -> bool:
+    return os.environ.get("UCFP_SKETCH_COST_MODEL", "1") != "0"
+
+
+def exact_scan_model_ms(cap: int, dim: int) -> float:
+    """Modeled time of the exhaustive single-query int8 scan."""
+    return cap * dim / (_cost_const("hbm_gbps") * 1e6) + 1.0
+
+
+def int4_model_ms(cap: int, dim: int, pool: int) -> float:
+    """Modeled time of the single-query int4 pipeline at (cap, pool)."""
+    stream = cap * (dim // 2 + 8) / (_cost_const("int4_gbps") * 1e6)
+    gather = pool * _cost_const("gather_ns") / 1e6
+    rescore = pool * dim / (_cost_const("hbm_gbps") * 1e6)
+    return stream + gather + rescore + _cost_const("int4_flat_ms")
+
+
+def exact_batch_model_ms(cap: int, dim: int, q: int) -> float:
+    """Modeled time of the exhaustive batched int8 path for q queries."""
+    hbm = _cost_const("hbm_gbps") * 1e6
+    return (cap * dim + 8.0 * cap * q) / hbm + 1.0
+
+
+def int4_batch_model_ms(cap: int, dim: int, q: int, pool: int) -> float:
+    """Modeled time of the batched int4 pipeline for q queries."""
+    qb = -(-max(1, q) // 8) * 8
+    bw = _cost_const("int4b_gbps") * 1e6
+    stream = cap * (dim // 2) / bw * -(-qb // INT4_BATCH_QB)
+    bounce = 2 * 2.0 * cap * qb / bw
+    gather = q * pool * _cost_const("gather_ns") / 1e6
+    rescore = q * pool * dim / (_cost_const("hbm_gbps") * 1e6)
+    return stream + bounce + gather + rescore + _cost_const("int4b_flat_ms")
+
+
+def int4_batch_beats_exact(cap: int, dim: int, q: int, pool: int) -> bool:
+    """Whether a batch of q queries takes the batched int4 pipeline."""
+    if not int4_supported(cap, dim):
+        return False
+    if not _cost_model_on():
+        return True
+    if pool * 2 >= cap:
+        return False
+    return int4_batch_model_ms(cap, dim, q, pool) < exact_batch_model_ms(cap, dim, q)
+
+
+def int4_beats_exact(cap: int, dim: int, pool: int, fused: bool = True) -> bool:
+    """Whether a single query takes the int4 pipeline; fused=False models
+    the filtered (dots + mask pass) form, 1.2 times the fused one."""
+    if not int4_supported(cap, dim):
+        return False
+    if not _cost_model_on():
+        return True
+    if pool * 2 >= cap:
+        return False
+    est = int4_model_ms(cap, dim, pool)
+    if not fused:
+        est *= 1.2
+    return est < exact_scan_model_ms(cap, dim)
 
 
 def pack_bits_to_u32(fp: bytes) -> np.ndarray:

@@ -442,9 +442,10 @@ class Handlers:
                 ]
             }
             if vectors and self.index.knn_is_approximate(
-                tenant_id, len(vectors[0]), k, exact=exact
+                tenant_id, len(vectors[0]), k, batch=True, exact=exact,
+                batch_q=len(vectors), filtered=flt is not None,
             ):
-                out["approximate"] = True  # fused candidates: marked
+                out["approximate"] = True  # fused candidates or an int4 pool
             return Response.json(out)
 
         fps_hex = body.get("fingerprints_hex")
@@ -540,7 +541,7 @@ class Handlers:
                 exact=exact,
             )
             approximate = bool(vector) and self.index.knn_is_approximate(
-                tenant_id, len(vector), k, exact=exact
+                tenant_id, len(vector), k, pool_frac=pool_frac, exact=exact
             )
             hits = await self.matcher.search(q)
         out = {"hits": [self._hit_out(tenant_id, h) for h in hits]}
