@@ -17,7 +17,11 @@ each:
                   (torch._int_mm) held exact, its shape rules and its time;
                   the three int4 kernels bit-equal at 2^22 and 2^23 rows
                   (and D = 770), and the int4 pack on the card equal to
-                  the pack on the CPU
+                  the pack on the CPU; the three int2 kernels (and their
+                  indices) bit-equal at 2^22 and 2^23 rows (and D = 772),
+                  the sketch scan bit-equal on three plans at 2^22 and
+                  2^23, and the int2 pack and the sketch build on the card
+                  equal to the same steps on the CPU
   4. conformance  the image hashes computed on the card against
                   tests/goldens/conformance.json
   5. served       the port's EmbeddedBackend on the card, bulk-loaded with
@@ -26,7 +30,7 @@ each:
                   process: image ingest (single and batch), the five query
                   forms, describe, delete
   6. int8         an EmbeddedBackend with knn_quant="int8" holding
-                  2^22 x 768 vectors under two model ids, served over
+                  2^21 x 768 vectors under two model ids, served over
                   loopback HTTP: vector, vectors x32, each with and without
                   a filter, and the exact tier; an upsert (the int8 row
                   patch), a query that finds it, a delete
@@ -43,15 +47,28 @@ each:
                   a query that finds it, a delete; then with batching on,
                   64 single vector requests from 32 client threads, each
                   answer equal to the unbatched one
+  9. int2         an EmbeddedBackend with knn_quant="int2" holding
+                  2^22 x 768 vectors under two model ids, served over
+                  loopback HTTP: vector (and with a filter), vectors x1
+                  and x32, the exact tier, and vector under
+                  UCFP_INT2_TOPQ=1 (the in-kernel top-8 scan, whose hits
+                  equal the default path's); an upsert (the packed column
+                  patch), a query that finds it, a delete
+ 10. sketch       the same store shape under knn_quant="sketch": vector
+                  at the fast and balanced recall tiers (and fast with a
+                  filter), vector at the default tier (served exact by
+                  the cost model), vectors x32, the exact tier; an upsert
+                  (the tiled sketch patch), a fast query that finds it, a
+                  delete
 
-In phases 5-8 every served answer is checked against the plain path on
+In phases 5-10 every served answer is checked against the plain path on
 the same device tensors (or, in phases 7 and 8, the micro-batched answer
 against the unbatched one), and the launch count of every kernel that
 the phase's path runs must rise between a reset just before the phase's
 requests and a read just after. Then one JSON line with every kernel's
-numbers (launches summed over phases 5-8), and last the line
+numbers (launches summed over phases 5-10), and last the line
 {"ok": true, "device": {...}}.
---phases picks a subset (default: all eight).
+--phases picks a subset (default: all ten).
 """
 
 import argparse
@@ -92,10 +109,15 @@ MULTI_ROWS = 1 << 20
 VEC_ROWS = 1 << 20
 DIM = 768  # the BASELINE image-embedding width
 SERVED_REPS = 20
-# phase 6: the README's int8 cosine 10M x 768 BASELINE, cut to 2^22 rows:
-# at 2^23 the bulk load met the 96 GiB host limit (PERF.md, Cells)
+# phase 6: the README's int8 cosine 10M x 768 BASELINE, cut to 2^21 rows to
+# keep the run's time: at 2^23 the bulk load met the 96 GiB host limit, and
+# with phase 6 at 2^22 the whole run took 1,010 s on one H100, 250 s more
+# than at 2^21 (PERF.md, Cells); #3-#5 and the int8 product all serve at
+# 2^21.
+# Phase 3 holds the int8 kernels at 2^22 (the other quantized phases'
+# size) and 2^23 rows
+INT8_SERVED_ROWS = 1 << 21
 INT8_ROWS = 1 << 22
-# phase 3 holds the int8 kernels at the served width and at 2^23 rows
 INT8_KERNEL_ROWS = (INT8_ROWS, 1 << 23)
 # phase 7: micro-batching, on catalogs small enough to keep the run short
 QBATCH_VEC_ROWS = 1 << 20
@@ -109,6 +131,14 @@ QBATCH_REQUESTS = 64  # per form (vector, fingerprint_hex)
 INT4_ROWS = 1 << 22
 INT4_KERNEL_ROWS = (INT4_ROWS, 1 << 23)
 INT4_QBATCH_REQUESTS = 64
+# phases 9 and 10: the int2 and sketch tiers at phase 6's size (the same
+# host-memory cut); at 2^21 the reference's cost model serves neither the
+# batched int2 scan nor the sketch scan at any Q or tier. Phase 3 holds
+# their kernels at the served rows and at 2^23
+INT2_ROWS = 1 << 22
+INT2_KERNEL_ROWS = (INT2_ROWS, 1 << 23)
+SKETCH_ROWS = INT2_ROWS
+SKETCH_KERNEL_ROWS = (SKETCH_ROWS, 1 << 23)
 
 PHASH = "imgfprint-phash-v1"
 MULTI = "imgfprint-multi-v1"
@@ -119,19 +149,21 @@ def say(line: str) -> None:
     print(line, flush=True)
 
 
+def _kernel_modules():
+    from ucfp_tpu_torch.ops import fused_scan, int2_scan, int4_scan, sketch_scan
+
+    return fused_scan, int4_scan, int2_scan, sketch_scan
+
+
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from ucfp_tpu_torch.ops import fused_scan, int4_scan
-
-    fused_scan.reset_launch_counts()
-    int4_scan.reset_launch_counts()
+    for mod in _kernel_modules():
+        mod.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count, by name."""
-    from ucfp_tpu_torch.ops import fused_scan, int4_scan
-
-    return {**fused_scan.LAUNCHES, **int4_scan.LAUNCHES}
+    return {name: n for mod in _kernel_modules() for name, n in mod.LAUNCHES.items()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -325,6 +357,14 @@ def phase_kernels(torch, dev, card: dict) -> dict:
         _kernels_int4(torch, dev, card, g, c, DIM, results)
     # an even width that is not a multiple of 8: a partial last dim group
     _kernels_int4(torch, dev, card, g, INT4_ROWS, DIM + 2, results)
+    results.update(int2_pack=[], int2_scores=[], int2_scores_batched=[], int2_topq=[])
+    for c in INT2_KERNEL_ROWS:
+        _kernels_int2(torch, dev, card, g, c, DIM, results)
+    # a multiple of 4 that is not a multiple of 16: a partial last group
+    _kernels_int2(torch, dev, card, g, INT2_ROWS, DIM + 4, results)
+    results.update(sketch_build=[], sketch=[])
+    for c in SKETCH_KERNEL_ROWS:
+        _kernels_sketch(torch, dev, card, g, c, results)
     for name, rows in results.items():
         say(f"kernels/{name}: " + json.dumps(rows))
     return results
@@ -656,6 +696,215 @@ def _kernels_int4(torch, dev, card: dict, g, c: int, d: int, results: dict) -> N
             "library_ms": time_ms(torch, lambda: int_mm(q)), "bound_ms": b, "bound_by": by,
         })
     del packed_t, inv_n4, unpacked
+    torch.cuda.empty_cache()
+
+
+def _int2_case(torch, dev, g, c: int, d: int, results: dict):
+    """Packed int2 columns of c random int8 rows, packed on the card, with
+    the edge rows the checks need: zero rows (inv_n2 == 0), rows whose
+    every field is -2 or 1, duplicate rows inside one 512-row segment,
+    and a column of every byte value. The card's pack is held equal to
+    the CPU's on a slice."""
+    from ucfp_tpu_torch.ops import knn
+
+    q8 = torch.randint(-127, 128, (c, d), generator=g, device=dev, dtype=torch.int8)
+    q8[3] = 0
+    q8[c - 5] = 0
+    q8[5] = -127  # a constant row: scale 1, every field -2
+    q8[6] = 127  # every field 1
+    q8[9, ::2] = 127
+    q8[9, 1::2] = -90
+    q8[1000:1010] = q8[1000]  # ties inside segment 1
+    m = 1 << 16
+    t0 = time.perf_counter()
+    packed_t, inv_n2 = knn.pack_int2_cols_chunked(q8)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    p_cpu, i_cpu = knn.pack_int2_cols(q8[:m].cpu())
+    check(torch.equal(packed_t[:, :m].cpu(), p_cpu)
+          and _same_bits(torch, inv_n2[:m].cpu(), i_cpu),
+          f"int2 pack on the card == on the CPU c={c} d={d}")
+    check(bool((inv_n2[[3, c - 5]] == 0).all()), "zero rows: inv_n2 == 0")
+    check(bool((packed_t[:, 5] == -128).all()) and bool((packed_t[:, 6] == 127).all()),
+          "constant rows: every field -2 / every field 1")
+    results["int2_pack"].append({"c": c, "d": d, "chunked_pack_s": pack_s})
+    del q8
+    dq = d // 4
+    packed_t[:, 7] = (torch.arange(dq, device=dev) % 256 - 128).to(torch.int8)
+    inv_n2[2048 + 5:2048 + 512] = 0.0  # segment 4 keeps 5 live rows
+    return packed_t, inv_n2
+
+
+def _int2_unpacked(torch, packed_t):
+    """The int2 codes of packed_t as an int8 [C, D] catalog of 2v + 1 (the
+    level v + 0.5, doubled): the library yardstick's input."""
+    a = torch.bitwise_right_shift(torch.bitwise_and(packed_t, -64), 6)
+    fields = [a] + [torch.bitwise_and(torch.bitwise_right_shift(packed_t, s), 3) - 2
+                    for s in (4, 2, 0)]
+    return (2 * torch.cat(fields) + 1).T.contiguous()
+
+
+def _kernels_int2(torch, dev, card: dict, g, c: int, d: int, results: dict) -> None:
+    """The three int2 kernels against their plain versions, bit for bit
+    (values, -inf slots and #14's rows): Q in {1, 5, 32, 64, 70}, float32
+    and bfloat16 out, n at C, C - 1024 and inside a segment; then, at the
+    served width, each kernel's time beside its plain version's,
+    torch._int_mm over the unpacked catalog (held exact against twice the
+    corrected dots) and the bound."""
+    from ucfp_tpu_torch.ops import int2_scan as i2
+    from ucfp_tpu_torch.ops import knn
+
+    packed_t, inv_n2 = _int2_case(torch, dev, g, c, d, results)
+    timed = d == DIM
+    qmax = 70
+    qs = torch.randint(-127, 128, (qmax, d), generator=g, device=dev, dtype=torch.int8)
+    qs[0] = 127  # queries of all +-127
+    qs[1] = -127
+    qs[2, ::2] = -127
+    *quarters, corrs = knn._int2_query_parts(qs)
+    one = [w[0] for w in quarters]
+    ns = (c, c - 1024, c // 2 + 77)
+    err = {"int2_scores": 0.0, "int2_scores_batched": 0.0, "int2_topq": 0.0}
+
+    def same(key, got, want, what):
+        torch.cuda.synchronize()
+        check(_same_bits(torch, got, want), f"{what} c={c} d={d}")
+        err[key] = max(err[key], _max_abs(torch, got, want))
+
+    # #12: one query's masked scores; #14: its per-segment top 8
+    for n in ns:
+        got = i2.int2_masked_scores(packed_t, *one, corrs[0], inv_n2, n)
+        same("int2_scores", got, i2.int2_masked_scores_plain(packed_t, *one, corrs[0], inv_n2, n),
+             f"int2_masked_scores bit-equal n={n}")
+        check(bool(torch.isneginf(got[n:]).all()) and bool(torch.isneginf(got[3])),
+              "-inf past n and on zero rows")
+        for qi in (0, 3):
+            args = (packed_t, *[w[qi] for w in quarters], corrs[qi], inv_n2, n)
+            vk, ik = i2.int2_topq_scores(*args)
+            vp, ip = i2.int2_topq_scores_plain(*args)
+            same("int2_topq", vk, vp, f"int2_topq_scores values bit-equal n={n} q={qi}")
+            check(torch.equal(ik, ip), f"int2_topq_scores rows equal n={n} q={qi}")
+    # #13: query blocks, both output types
+    for q in (1, 5, 32, 64, 70):
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in ns:
+                args = (packed_t, *[w[:q] for w in quarters], corrs[:q], inv_n2, n)
+                same("int2_scores_batched",
+                     i2.int2_masked_scores_batched(*args, out_dtype=dtype),
+                     i2.int2_masked_scores_batched_plain(*args, out_dtype=dtype),
+                     f"int2_masked_scores_batched bit-equal q={q} {dtype} n={n}")
+    results["int2_pack"][-1]["max_abs_err"] = err
+    if not timed:
+        del packed_t, inv_n2
+        torch.cuda.empty_cache()
+        return
+
+    unpacked = _int2_unpacked(torch, packed_t)
+
+    def int_mm(q):
+        a = torch.zeros((max(q, knn.INT_MM_MIN_M), d), dtype=torch.int8, device=dev)
+        a[:q] = qs[:q]
+        return torch._int_mm(a, unpacked.T)[:q]
+
+    dots = i2._int2_dots_plain(packed_t, [w[:32] for w in quarters])
+    torch.cuda.synchronize()
+    check(torch.equal(int_mm(32), 2 * dots - (2 * corrs[:32, None]).int()),
+          f"torch._int_mm over the unpacked catalog == twice the corrected dots c={c}")
+    del dots
+    dq = d // 4
+
+    def bound(q, out_bytes):
+        return bound_ms(card, c * dq + c * 4 + out_bytes + q * d,
+                        int8_mma_ops=2 * q * c * d)
+
+    b, by = bound(1, c * 4)
+    results["int2_scores"].append({
+        "q": 1, "c": c, "d": d, "max_abs_err": err["int2_scores"],
+        "ms": time_ms(torch, lambda: i2.int2_masked_scores(
+            packed_t, *one, corrs[0], inv_n2, c)),
+        "plain_ms": time_ms(torch, lambda: i2.int2_masked_scores_plain(
+            packed_t, *one, corrs[0], inv_n2, c)),
+        "library_ms": time_ms(torch, lambda: int_mm(1)), "bound_ms": b, "bound_by": by,
+    })
+    b, by = bound(1, c // i2.TOPQ_SEG * i2.TOPQ * 8)
+    results["int2_topq"].append({
+        "q": 1, "c": c, "d": d, "max_abs_err": err["int2_topq"],
+        "ms": time_ms(torch, lambda: i2.int2_topq_scores(
+            packed_t, *one, corrs[0], inv_n2, c)),
+        "plain_ms": time_ms(torch, lambda: i2.int2_topq_scores_plain(
+            packed_t, *one, corrs[0], inv_n2, c)),
+        "library_ms": time_ms(torch, lambda: int_mm(1)), "bound_ms": b, "bound_by": by,
+    })
+    for q in (1, 32, 64):
+        args = (packed_t, *[w[:q] for w in quarters], corrs[:q], inv_n2, c)
+        b, by = bound(q, q * c * 2)
+        results["int2_scores_batched"].append({
+            "q": q, "c": c, "d": d, "dtype": "bfloat16",
+            "max_abs_err": err["int2_scores_batched"],
+            "ms": time_ms(torch, lambda: i2.int2_masked_scores_batched(
+                *args, out_dtype=torch.bfloat16)),
+            "plain_ms": time_ms(torch, lambda: i2.int2_masked_scores_batched_plain(
+                *args, out_dtype=torch.bfloat16)),
+            "library_ms": time_ms(torch, lambda: int_mm(q)), "bound_ms": b, "bound_by": by,
+        })
+    del packed_t, inv_n2, unpacked
+    torch.cuda.empty_cache()
+
+
+def _kernels_sketch(torch, dev, card: dict, g, c: int, results: dict) -> None:
+    """The sketch scan against its plain version, bit for bit, on three
+    plans: a random query's, a one-hot query's (every |projection| equal:
+    all planes in one level, three weights 0) and a random plan over a
+    catalog of duplicate sketch rows; the sketch built on the card equal
+    to the CPU's on a slice; then the scan's time, its plain version's
+    and the bound."""
+    from ucfp_tpu_torch.ops import knn
+    from ucfp_tpu_torch.ops import sketch_scan as sk
+
+    q8 = torch.randint(-127, 128, (c, DIM), generator=g, device=dev, dtype=torch.int8)
+    planes_np = knn.sketch_planes(DIM)
+    planes = torch.from_numpy(planes_np).to(dev)
+    t0 = time.perf_counter()
+    tiled = knn.tile_sketch(knn.build_sketch_chunked(q8, planes))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = 1 << 16
+    cpu = knn.tile_sketch(knn.build_sketch_chunked(q8[:m].cpu(), torch.from_numpy(planes_np)))
+    check(torch.equal(tiled[:m // knn.SKETCH_LANES].cpu(), cpu),
+          f"sketch build on the card == on the CPU c={c}")
+    del q8
+    query = torch.randn(DIM, generator=g, device=dev)
+    onehot = torch.zeros(DIM, device=dev)
+    onehot[0] = 5.0
+    plans = {"random": knn.sketch_query_plan(query, planes)[:4],
+             "onehot": knn.sketch_query_plan(onehot, planes)[:4]}
+    check(int((plans["onehot"][2] == 0).sum()) == 3, "one-hot plan: three weights 0")
+    base = tiled.reshape(-1, knn.SKETCH_WORDS, knn.SKETCH_LANES)
+    dup = base[:, :, torch.randint(0, 4, (knn.SKETCH_LANES,), generator=g,
+                                   device=dev)].contiguous()  # 4 distinct rows per group
+    err = 0.0
+    for name, plan in plans.items():
+        for cat in ((tiled,) if name == "onehot" else (tiled, dup)):
+            got = sk.asym_sketch_scores_tiled(cat, *plan)
+            torch.cuda.synchronize()
+            want = sk.asym_sketch_scores_tiled_plain(cat, *plan)
+            check(_same_bits(torch, got, want),
+                  f"asym_sketch_scores_tiled bit-equal plan={name} dup={cat is dup} c={c}")
+            err = max(err, _max_abs(torch, got, want))
+    del dup
+    plan = plans["random"]
+    nbytes = c * knn.SKETCH_WORDS * 4 + c * 4
+    # per row and word: one XOR, four AND and four adds; four popcounts
+    b, by = bound_ms(card, nbytes, alu_ops=9 * c * knn.SKETCH_WORDS,
+                     popc_ops=4 * c * knn.SKETCH_WORDS)
+    results["sketch_build"].append({"c": c, "d": DIM, "build_s": build_s})
+    results["sketch"].append({
+        "c": c, "d": DIM, "max_abs_err": err,
+        "ms": time_ms(torch, lambda: sk.asym_sketch_scores_tiled(tiled, *plan)),
+        "plain_ms": time_ms(torch, lambda: sk.asym_sketch_scores_tiled_plain(tiled, *plan)),
+        "library_ms": None, "bound_ms": b, "bound_by": by,
+    })
+    del tiled
     torch.cuda.empty_cache()
 
 
@@ -1016,19 +1265,15 @@ def phase_served(torch, dev) -> dict:
 
 @contextlib.contextmanager
 def _plain_quant_path(torch):
-    """The int8 and int4 paths' kernels and the int8 product swapped for
-    their plain versions, so the backend answers a query the plain way on
-    the same device tensors."""
-    from ucfp_tpu_torch.ops import fused_scan as fs
-    from ucfp_tpu_torch.ops import int4_scan as i4
+    """The quantized paths' kernels and the int8 product swapped for their
+    plain versions, so the backend answers a query the plain way on the
+    same device tensors."""
     from ucfp_tpu_torch.ops import knn
 
     swaps = {(knn, "int8_dots"): lambda qq, q8m: int8_dots_plain(torch, qq, q8m)}
-    for name in ("scores_topk_fused", "scores_topk_fused_batched",
-                 "dots_norm_topk_fused", "dots_norm_topk_fused_batched"):
-        swaps[(fs, name)] = getattr(fs, name + "_plain")
-    for name in ("int4_dots", "int4_masked_scores", "int4_masked_scores_batched"):
-        swaps[(i4, name)] = getattr(i4, name + "_plain")
+    for mod in _kernel_modules():
+        for name in mod.LAUNCHES:
+            swaps[(mod, name)] = getattr(mod, name + "_plain")
     saved = {key: getattr(*key) for key in swaps}
     try:
         for (mod, name), fn in swaps.items():
@@ -1047,10 +1292,15 @@ def _served_rows(body: dict, res: dict) -> list:
 
 
 def _plain_quant_rows(torch, backend, body: dict) -> list:
-    kw = {"filter": body.get("filter"), "exact": body.get("recall_tier") == "exact"}
+    from ucfp_tpu_torch.core import POOL_FRAC_TIERS
+
+    tier = body.get("recall_tier")
+    kw = {"filter": body.get("filter"), "exact": tier == "exact"}
     with _plain_quant_path(torch):
         if "vector" in body:
-            res = [asyncio.run(backend.knn(0, body["vector"], body["k"], **kw))]
+            pool_frac = {"fast": POOL_FRAC_TIERS[0], "balanced": POOL_FRAC_TIERS[1]}.get(tier)
+            res = [asyncio.run(backend.knn(0, body["vector"], body["k"],
+                                           pool_frac=pool_frac, **kw))]
         else:
             res = asyncio.run(backend.knn_batch(0, body["vectors"], body["k"], **kw))
     return [[(h.record_id, h.score) for h in hits] for hits in res]
@@ -1077,39 +1327,84 @@ def _close_backend(torch, server, backend, tmp) -> None:
     torch.cuda.empty_cache()
 
 
+def _vector_store(torch, backend, n: int, seed: int, rng_seed: int, count: int = 32):
+    """Bulk-load n x DIM vectors under two model ids -> (load seconds,
+    cache, `count` noisy stored vectors, their record ids, their model
+    ids)."""
+    import numpy as np
+
+    load_s = _bulk_load(torch, backend, 0, 0, n, DIM, seed=seed, dev=backend.device,
+                        model_ids=("m0", "m1"), vec_fp_bytes=8)["vectors_s"]
+    vcache = backend._vec[(0, DIM)]
+    check(vcache.n == n, f"{n} vectors in the store")
+    rng = np.random.default_rng(rng_seed)
+    picks = [int(x) for x in rng.integers(0, n, count)]
+    vecs = [[float(x) for x in vcache.data[p] + rng.normal(0, 0.01, DIM)] for p in picks]
+    # bulk chunks of 2^15 rows alternate m0 / m1 (rows in load order)
+    model = ["m0" if (p >> 15) % 2 == 0 else "m1" for p in picks]
+    return load_s, vcache, vecs, [vcache.rids[p] for p in picks], model
+
+
+def _served_checker(torch, backend, call, lat):
+    def served(form, body, reps=SERVED_REPS):
+        times = []
+        for _ in range(reps):
+            st, res, ms = call("POST", "/v1/query", body)
+            check(st == 200, f"{form}: {st} {res}")
+            times.append(ms)
+        lat[form] = statistics.median(times)
+        rows = _served_rows(body, res)
+        check(rows == _plain_quant_rows(torch, backend, body),
+              f"{backend.knn_quant} {form} hits == plain path")
+        return res, rows
+    return served
+
+
+def _upsert_find_delete(torch, backend, call, base: dict, rid: int, seed: int) -> None:
+    """An upsert after the device cache exists (the row patches), a query
+    that finds it at rank 1 (held against the plain path), a delete."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(0, 1, DIM)
+    st, res, _ = call("POST", "/v1/records", {"records": [{
+        "tenant_id": 0, "record_id": rid, "modality": "image",
+        "algorithm": SEM, "fingerprint": list(range(8)),
+        "embedding": [float(x) for x in emb], "model_id": "m1"}]})
+    check(st == 200, f"upsert: {st} {res}")
+    body = {**base, "vector": [float(x) for x in emb + rng.normal(0, 0.01, DIM)]}
+    st, res, _ = call("POST", "/v1/query", body)
+    check(st == 200 and res["hits"][0]["record_id"] == rid, "upserted vector at rank 1")
+    check(_served_rows(body, res) == _plain_quant_rows(torch, backend, body),
+          "after the row patches: hits == plain path")
+    st, _, _ = call("DELETE", f"/v1/records/0/{rid}")
+    check(st == 200, "delete")
+    st, res, _ = call("POST", "/v1/query", body)
+    check(st == 200 and all(h["record_id"] != rid for h in res["hits"]),
+          "deleted vector no longer returned")
+
+
 def phase_int8(torch, dev) -> dict:
-    """The int8 tier served at the README's int8 shape cut to 2^22 rows:
+    """The int8 tier served at the README's int8 shape cut to 2^21 rows:
     the single and batched forms, filtered and not, and the exact tier,
     each held against the plain path; an upsert (the int8 row patch), a
     query that finds it and a delete."""
-    import numpy as np
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
     from ucfp_tpu_torch.server.app import ServerState
     from ucfp_tpu_torch.server.auth import StaticSingleKey
 
-    n = INT8_ROWS - 1024  # served upserts land below the loaded capacity
-    k = 10
+    n = INT8_SERVED_ROWS - 1024  # served upserts land below the loaded capacity
     tmp = tempfile.mkdtemp(prefix="ucfp-smoke-int8-")
     backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev, knn_quant="int8")
     server = None
     try:
-        load = _bulk_load(torch, backend, 0, 0, n, DIM, seed=8, dev=dev,
-                          model_ids=("m0", "m1"), vec_fp_bytes=8)
+        load_s, vcache, vecs, want, model = _vector_store(torch, backend, n, 8, 12)
         token = "smoke-token"
         server = _ServerThread(ServerState(index=backend,
                                            api_keys=StaticSingleKey(token)))
         call = _Client(server.port, token)
-        vcache = backend._vec[(0, DIM)]
-        rng = np.random.default_rng(12)
-        picks = [int(x) for x in rng.integers(0, n, 32)]
-        vecs = [[float(x) for x in vcache.data[p] + rng.normal(0, 0.01, DIM)]
-                for p in picks]
-        want = [vcache.rids[p] for p in picks]
-        # bulk chunks of 2^15 rows alternate m0 / m1 (no deletes yet, so
-        # rows are in load order)
-        model = ["m0" if (p >> 15) % 2 == 0 else "m1" for p in picks]
-        base = {"tenant_id": 0, "modality": "image", "k": k}
+        base = {"tenant_id": 0, "modality": "image", "k": 10}
         torch.cuda.reset_peak_memory_stats()
 
         # ---- the main path: launch counts are read over exactly this block
@@ -1119,19 +1414,7 @@ def phase_int8(torch, dev) -> dict:
         first_s = time.perf_counter() - t0  # builds the int8 device cache
         check(st == 200, f"first int8 query: {st} {res}")
         lat = {}
-
-        def served(form, body, reps=SERVED_REPS):
-            times = []
-            for _ in range(reps):
-                st, res, ms = call("POST", "/v1/query", body)
-                check(st == 200, f"{form}: {st} {res}")
-                times.append(ms)
-            lat[form] = statistics.median(times)
-            rows = _served_rows(body, res)
-            check(rows == _plain_quant_rows(torch, backend, body),
-                  f"{form} hits == plain path")
-            return res, rows
-
+        served = _served_checker(torch, backend, call, lat)
         res, rows = served("vector", {**base, "vector": vecs[0]})
         check(rows[0][0][0] == want[0] and res.get("approximate") is True,
               "noisy stored vector at rank 1, marked approximate")
@@ -1148,25 +1431,7 @@ def phase_int8(torch, dev) -> dict:
                                             "recall_tier": "exact"})
         check(rows[0][0][0] == want[0] and "approximate" not in res,
               "exact tier: rank 1, not marked approximate")
-
-        # an upsert after the first query takes the int8 row patch
-        rid = 7 * 10**8
-        emb = rng.normal(0, 1, DIM)
-        st, res, _ = call("POST", "/v1/records", {"records": [{
-            "tenant_id": 0, "record_id": rid, "modality": "image",
-            "algorithm": SEM, "fingerprint": list(range(8)),
-            "embedding": [float(x) for x in emb], "model_id": "m1"}]})
-        check(st == 200, f"upsert: {st} {res}")
-        body = {**base, "vector": [float(x) for x in emb + rng.normal(0, 0.01, DIM)]}
-        st, res, _ = call("POST", "/v1/query", body)
-        check(st == 200 and res["hits"][0]["record_id"] == rid, "upserted vector at rank 1")
-        check(_served_rows(body, res) == _plain_quant_rows(torch, backend, body),
-              "after the row patch: hits == plain path")
-        st, _, _ = call("DELETE", f"/v1/records/0/{rid}")
-        check(st == 200, "delete")
-        st, res, _ = call("POST", "/v1/query", body)
-        check(st == 200 and all(h["record_id"] != rid for h in res["hits"]),
-              "deleted vector no longer returned")
+        _upsert_find_delete(torch, backend, call, base, 7 * 10**8, seed=19)
         launches = read_counts()
         # ---- end of the main path
         check(all(launches[name] > 0 for name in (
@@ -1175,7 +1440,7 @@ def phase_int8(torch, dev) -> dict:
             f"every kernel of the int8 path launched: {launches}")
         out = {
             "rows": vcache.n, "capacity": vcache.data.shape[0], "dim": DIM,
-            "load_s": load["vectors_s"], "first_query_s": first_s,
+            "load_s": load_s, "first_query_s": first_s,
             "p50_ms": lat, "launches": launches,
             "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
             "host_gib": host_gib(),
@@ -1296,15 +1561,12 @@ def phase_int4(torch, dev) -> dict:
     at each flush's size), each equal to the unbatched answer (#9)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    import numpy as np
-
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
     from ucfp_tpu_torch.ops import knn
     from ucfp_tpu_torch.server.app import ServerState
     from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     n = INT4_ROWS - 1024  # served upserts land below the loaded capacity
-    k = 10
     tmp = tempfile.mkdtemp(prefix="ucfp-smoke-int4-")
     os.environ["UCFP_QUERY_BATCH_MS"] = str(QBATCH_MS)
     try:
@@ -1316,22 +1578,14 @@ def phase_int4(torch, dev) -> dict:
     try:
         check(backend._qbatch_ms == QBATCH_MS, "UCFP_QUERY_BATCH_MS read")
         backend._qbatch_ms = 0.0  # off until the micro-batched block
-        load = _bulk_load(torch, backend, 0, 0, n, DIM, seed=10, dev=dev,
-                          model_ids=("m0", "m1"), vec_fp_bytes=8)
+        load_s, vcache, vecs, want, model = _vector_store(
+            torch, backend, n, 10, 14, count=32 + INT4_QBATCH_REQUESTS)
         token = "smoke-token"
         server = _ServerThread(ServerState(index=backend,
                                            api_keys=StaticSingleKey(token)))
         call = _Client(server.port, token)
         clients.append(call)
-        vcache = backend._vec[(0, DIM)]
-        rng = np.random.default_rng(14)
-        picks = [int(x) for x in rng.integers(0, n, 32 + INT4_QBATCH_REQUESTS)]
-        vecs = [[float(x) for x in vcache.data[p] + rng.normal(0, 0.01, DIM)]
-                for p in picks]
-        want = [vcache.rids[p] for p in picks]
-        # bulk chunks of 2^15 rows alternate m0 / m1 (no deletes yet)
-        model = ["m0" if (p >> 15) % 2 == 0 else "m1" for p in picks]
-        base = {"tenant_id": 0, "modality": "image", "k": k}
+        base = {"tenant_id": 0, "modality": "image", "k": 10}
         torch.cuda.reset_peak_memory_stats()
 
         # ---- the main path: launch counts are read over exactly this block
@@ -1341,19 +1595,7 @@ def phase_int4(torch, dev) -> dict:
         first_s = time.perf_counter() - t0  # builds the int8 + packed int4 cache
         check(st == 200, f"first int4 query: {st} {res}")
         lat = {}
-
-        def served(form, body, reps=SERVED_REPS):
-            times = []
-            for _ in range(reps):
-                st, res, ms = call("POST", "/v1/query", body)
-                check(st == 200, f"{form}: {st} {res}")
-                times.append(ms)
-            lat[form] = statistics.median(times)
-            rows = _served_rows(body, res)
-            check(rows == _plain_quant_rows(torch, backend, body),
-                  f"int4 {form} hits == plain path")
-            return res, rows
-
+        served = _served_checker(torch, backend, call, lat)
         res, rows = served("vector", {**base, "vector": vecs[0]})
         check(rows[0][0][0] == want[0] and res.get("approximate") is True,
               "int4 vector: rank 1, marked approximate")
@@ -1371,25 +1613,7 @@ def phase_int4(torch, dev) -> dict:
                                             "recall_tier": "exact"})
         check(rows[0][0][0] == want[0] and "approximate" not in res,
               "int4 exact tier: rank 1, not marked approximate")
-
-        # an upsert after the cache exists takes the packed column patch
-        rid = 8 * 10**8
-        emb = rng.normal(0, 1, DIM)
-        st, res, _ = call("POST", "/v1/records", {"records": [{
-            "tenant_id": 0, "record_id": rid, "modality": "image",
-            "algorithm": SEM, "fingerprint": list(range(8)),
-            "embedding": [float(x) for x in emb], "model_id": "m1"}]})
-        check(st == 200, f"upsert: {st} {res}")
-        body = {**base, "vector": [float(x) for x in emb + rng.normal(0, 0.01, DIM)]}
-        st, res, _ = call("POST", "/v1/query", body)
-        check(st == 200 and res["hits"][0]["record_id"] == rid, "upserted vector at rank 1")
-        check(_served_rows(body, res) == _plain_quant_rows(torch, backend, body),
-              "after the packed column patch: hits == plain path")
-        st, _, _ = call("DELETE", f"/v1/records/0/{rid}")
-        check(st == 200, "delete")
-        st, res, _ = call("POST", "/v1/query", body)
-        check(st == 200 and all(h["record_id"] != rid for h in res["hits"]),
-              "deleted vector no longer returned")
+        _upsert_find_delete(torch, backend, call, base, 8 * 10**8, seed=20)
         unbatched_launches = read_counts()
 
         # micro-batching: single vector requests from many clients at once
@@ -1447,7 +1671,7 @@ def phase_int4(torch, dev) -> dict:
         del pk, inv
         out = {
             "rows": vcache.n, "capacity": vcache.data.shape[0], "dim": DIM,
-            "load_s": load["vectors_s"], "first_query_s": first_s, "pack_s": pack_s,
+            "load_s": load_s, "first_query_s": first_s, "pack_s": pack_s,
             "p50_ms": lat, "launches": launches, "micro_batched_launches": mb,
             "qbatch": {"requests": len(bodies), "flushes": flushes,
                        "items_per_flush": items / flushes,
@@ -1459,6 +1683,178 @@ def phase_int4(torch, dev) -> dict:
     finally:
         for c in clients:
             c.conn.close()
+        _close_backend(torch, server, backend, tmp)
+
+
+# -- phases 9 and 10 ------------------------------------------------------------
+
+
+def phase_int2(torch, dev) -> dict:
+    """The int2 tier at phase 6's size, where the reference's cost model
+    serves #12 (filtered too) and #13 at Q = 1: vector, filtered vector,
+    vectors x1 and x32, the exact tier, and vector under UCFP_INT2_TOPQ=1
+    (#14), each held against the plain path; an upsert (the packed column
+    patch), a query that finds it and a delete."""
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.ops import knn
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+
+    n = INT2_ROWS - 1024  # served upserts land below the loaded capacity
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-int2-")
+    backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev, knn_quant="int2")
+    server = None
+    try:
+        load_s, vcache, vecs, want, model = _vector_store(torch, backend, n, 11, 15)
+        token = "smoke-token"
+        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        call = _Client(server.port, token)
+        base = {"tenant_id": 0, "modality": "image", "k": 10}
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: launch counts are read over exactly this block
+        reset_counts()
+        t0 = time.perf_counter()
+        st, res, _ = call("POST", "/v1/query", {**base, "vector": vecs[0]})
+        first_s = time.perf_counter() - t0  # builds the int8 + packed int2 cache
+        check(st == 200, f"first int2 query: {st} {res}")
+        lat = {}
+        served = _served_checker(torch, backend, call, lat)
+        res, rows = served("vector", {**base, "vector": vecs[0]})
+        check(rows[0][0][0] == want[0] and res.get("approximate") is True,
+              "int2 vector: rank 1, marked approximate")
+        default_rows = rows
+        res, rows = served("vector_filter", {**base, "vector": vecs[0],
+                                             "filter": {"model_id": model[0]}})
+        check(rows[0][0][0] == want[0], "int2 filtered vector at rank 1")
+        res, rows = served("vectors_1", {**base, "vectors": vecs[:1]})
+        check(rows[0][0][0] == want[0] and res.get("approximate") is True,
+              "int2 vectors x1: rank 1, marked approximate")
+        res, rows = served("vectors", {**base, "vectors": vecs})
+        check([r[0][0] for r in rows] == want, "int2 vectors: 32 noisy stored vectors at rank 1")
+        res, rows = served("vector_exact", {**base, "vector": vecs[0], "recall_tier": "exact"})
+        check(rows[0][0][0] == want[0] and "approximate" not in res,
+              "int2 exact tier: rank 1, not marked approximate")
+        os.environ["UCFP_INT2_TOPQ"] = "1"
+        try:
+            res, rows = served("vector_topq", {**base, "vector": vecs[0]})
+        finally:
+            del os.environ["UCFP_INT2_TOPQ"]
+        check(rows == default_rows, "UCFP_INT2_TOPQ=1 hits == the default path's")
+        _upsert_find_delete(torch, backend, call, base, 9 * 10**8, seed=16)
+        launches = read_counts()
+        # ---- end of the main path
+        check(all(launches[name] > 0 for name in (
+            "int2_masked_scores", "int2_masked_scores_batched", "int2_topq_scores",
+            "dots_norm_topk_fused_batched")),
+            f"every kernel of the int2 path launched: {launches}")
+        peak_device = torch.cuda.max_memory_allocated() / 2**30
+
+        # the pack alone at the served size, and the patched columns equal
+        # to a fresh pack of the same rows
+        q8m, _, packed_t, inv_n2 = vcache.device[:4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pk, inv = knn.pack_int2_cols_chunked(q8m[:, :DIM])
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        check(torch.equal(pk, packed_t) and _same_bits(torch, inv, inv_n2),
+              "the patched packed int2 columns == a fresh pack")
+        del pk, inv, q8m, packed_t, inv_n2
+        out = {
+            "rows": vcache.n, "capacity": vcache.data.shape[0], "dim": DIM,
+            "load_s": load_s, "first_query_s": first_s, "pack_s": pack_s,
+            "p50_ms": lat, "launches": launches,
+            "peak_device_gib": peak_device, "host_gib": host_gib(),
+        }
+        say("int2: " + json.dumps(out))
+        return out
+    finally:
+        _close_backend(torch, server, backend, tmp)
+
+
+def phase_sketch(torch, dev) -> dict:
+    """The sketch tier at phase 6's size: vector at the fast and balanced
+    recall tiers (#15; fast also with a filter), vector at the default
+    tier (the cost model serves the exact int8 path there, and #15 does
+    not launch), vectors x32 and the exact tier, each held against the
+    plain path; an upsert (the tiled sketch patch), a fast query that
+    finds it and a delete. The store is loaded anew: reopening phase 9's
+    data directory replayed its 13 GB log in 259 s against a 107 s bulk
+    load (PERF.md)."""
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.ops import knn
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+
+    n = SKETCH_ROWS - 1024
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-sketch-")
+    backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev, knn_quant="sketch")
+    server = None
+    try:
+        load_s, vcache, vecs, want, model = _vector_store(torch, backend, n, 12, 17)
+        token = "smoke-token"
+        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        call = _Client(server.port, token)
+        base = {"tenant_id": 0, "modality": "image", "k": 10}
+        fast = {**base, "recall_tier": "fast"}
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: launch counts are read over exactly this block
+        reset_counts()
+        t0 = time.perf_counter()
+        st, res, _ = call("POST", "/v1/query", {**fast, "vector": vecs[0]})
+        first_s = time.perf_counter() - t0  # builds the int8 + sketch cache
+        check(st == 200, f"first sketch query: {st} {res}")
+        lat = {}
+        served = _served_checker(torch, backend, call, lat)
+        for tier in ("fast", "balanced"):
+            res, rows = served(f"vector_{tier}", {**base, "vector": vecs[0],
+                                                  "recall_tier": tier})
+            check(rows[0][0][0] == want[0] and res.get("approximate") is True,
+                  f"sketch {tier} vector: rank 1, marked approximate")
+        res, rows = served("vector_fast_filter", {**fast, "vector": vecs[1],
+                                                  "filter": {"model_id": model[1]}})
+        check(rows[0][0][0] == want[1], "sketch fast filtered vector at rank 1")
+        scans = read_counts()["asym_sketch_scores_tiled"]
+        res, rows = served("vector_default", {**base, "vector": vecs[0]})
+        check(rows[0][0][0] == want[0], "sketch default tier: rank 1")
+        check(read_counts()["asym_sketch_scores_tiled"] == scans,
+              "the default tier is served by the exact int8 path (no sketch scan)")
+        res, rows = served("vectors", {**base, "vectors": vecs})
+        check([r[0][0] for r in rows] == want, "sketch vectors: 32 noisy stored vectors at rank 1")
+        res, rows = served("vector_exact", {**base, "vector": vecs[0], "recall_tier": "exact"})
+        check(rows[0][0][0] == want[0] and "approximate" not in res,
+              "sketch exact tier: rank 1, not marked approximate")
+        _upsert_find_delete(torch, backend, call, fast, 10 * 10**8, seed=18)
+        launches = read_counts()
+        # ---- end of the main path
+        check(all(launches[name] > 0 for name in (
+            "asym_sketch_scores_tiled", "dots_norm_topk_fused",
+            "dots_norm_topk_fused_batched")),
+            f"every kernel of the sketch path launched: {launches}")
+        peak_device = torch.cuda.max_memory_allocated() / 2**30
+
+        # the sketch build alone at the served size, and the patched
+        # sketch equal to a fresh build of the same rows
+        q8m, _, tiled = vcache.device[:3]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = knn.tile_sketch(knn.build_sketch_chunked(q8m[:, :DIM],
+                                                         backend._sketch_planes(DIM)))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(torch.equal(fresh, tiled), "the patched sketch == a fresh build")
+        del fresh, q8m, tiled
+        out = {
+            "rows": vcache.n, "capacity": vcache.data.shape[0], "dim": DIM,
+            "load_s": load_s, "first_query_s": first_s,
+            "sketch_build_s": build_s, "p50_ms": lat, "launches": launches,
+            "peak_device_gib": peak_device, "host_gib": host_gib(),
+        }
+        say("sketch: " + json.dumps(out))
+        return out
+    finally:
         _close_backend(torch, server, backend, tmp)
 
 
@@ -1476,7 +1872,9 @@ def _findings_line(kernels: dict, served: list) -> dict:
     def pick(rows, **want):
         return next(r for r in rows if all(r[key] == v for key, v in want.items()))
 
-    scan, int4 = "pallas_scan.py", "pallas_int4.py"
+    scan, int4, int2, knn = "pallas_scan.py", "pallas_int4.py", "pallas_int2.py", "knn.py"
+    source = {scan: "fused_scan.cu", int4: "int4_scan.cu", int2: "int2_scan.cu",
+              knn: "sketch_scan.cu"}
     rows = (
         ("scores_topk_fused_batched", scan, 487, "scores",
          pick(kernels["scores"], q=32, dtype="float32", ties=False), {"q": 32}),
@@ -1495,11 +1893,19 @@ def _findings_line(kernels: dict, served: list) -> dict:
          {"q": 32, "d": DIM, "dtype": "bfloat16"}),
         ("int4_dots", int4, 79, "int4_dots",
          pick(kernels["int4_dots"], c=INT4_ROWS), {"q": 1, "d": DIM}),
+        ("int2_masked_scores", int2, 100, "int2_scores",
+         pick(kernels["int2_scores"], c=INT2_ROWS), {"q": 1, "d": DIM}),
+        ("int2_masked_scores_batched", int2, 162, "int2_scores_batched",
+         pick(kernels["int2_scores_batched"], c=INT2_ROWS, q=1),
+         {"q": 1, "d": DIM, "dtype": "bfloat16"}),
+        ("int2_topq_scores", int2, 257, "int2_topq",
+         pick(kernels["int2_topq"], c=INT2_ROWS), {"q": 1, "d": DIM}),
+        ("asym_sketch_scores_tiled", knn, 366, "sketch",
+         pick(kernels["sketch"], c=SKETCH_ROWS), {"q": 1, "bits": 768}),
     )
     return {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "ucfp_tpu_torch/csrc/" + ("int4_scan.cu" if path == int4
-                                             else "fused_scan.cu"),
+         "source": "ucfp_tpu_torch/csrc/" + source[path],
          "replaces": f"ucfp_tpu/ops/{path}:{line}",
          "launches": launches.get(name),
          "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
@@ -1512,7 +1918,8 @@ def _findings_line(kernels: dict, served: list) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
-                   default="device,build,kernels,conformance,served,int8,qbatch,int4")
+                   default="device,build,kernels,conformance,served,int8,qbatch,int4,"
+                           "int2,sketch")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -1536,7 +1943,8 @@ def main() -> int:
         phase_conformance(dev)
     served = []
     for name, phase in (("served", phase_served), ("int8", phase_int8),
-                        ("qbatch", phase_qbatch), ("int4", phase_int4)):
+                        ("qbatch", phase_qbatch), ("int4", phase_int4),
+                        ("int2", phase_int2), ("sketch", phase_sketch)):
         if name in phases:
             served.append(phase(torch, dev))
     if kernels is not None:

@@ -221,13 +221,44 @@ def test_out_of_slice_writes_are_refused(tmp_path):
     t2.close()
 
 
-@pytest.mark.parametrize("mode", ["sketch", "int2"])
-def test_quantized_tiers_are_refused(tmp_path, monkeypatch, mode):
-    monkeypatch.setenv("UCFP_KNN_QUANT", mode)
-    with pytest.raises(UnsupportedError, match=mode):
-        EmbeddedBackend(str(tmp_path), device="cpu")
-    with pytest.raises(UnsupportedError, match=mode):
-        EmbeddedBackend(str(tmp_path), device="cpu", knn_quant=mode)
+def test_wal_bulk_copy_out():
+    """The bulk replay copies the native buffer out through the buffer
+    protocol, one memcpy with a 64-bit size (ctypes.string_at's C-int size
+    cut a multi-GiB log short)."""
+    import ctypes
+
+    from ucfp_tpu_torch.index.wal import _copy_out
+
+    src = (ctypes.c_uint8 * 1000)(*[i % 251 for i in range(1000)])
+    ptr = ctypes.cast(src, ctypes.POINTER(ctypes.c_uint8))
+    out = _copy_out(ptr, 1000)
+    assert out.dtype == np.uint8 and out.tolist() == [i % 251 for i in range(1000)]
+    src[0] = 200
+    assert out[0] == 0  # a copy, not a view of the native buffer
+    assert _copy_out(ptr, 0).shape == (0,)
+    assert _copy_out(ptr, 16).view("<u8").shape == (2,)
+
+
+def test_unknown_quant_serves_exact_f32(tmp_path, monkeypatch):
+    """An unknown UCFP_KNN_QUANT is not checked, as in the reference: the
+    backend opens and serves the exact f32 path, with the same hits."""
+    monkeypatch.setenv("UCFP_KNN_QUANT", "Int3")
+    p = Pair(tmp_path, "auto")
+    try:
+        assert p.j.knn_quant == p.t.knn_quant == "int3"
+        rng = np.random.default_rng(3)
+        emb = rng.integers(-3, 4, (300, DIM)).astype(np.float32)
+        p.both("upsert_embedding_batch", 0, SEM, list(range(300)), emb,
+               modality="image", model_id="m1")
+        q = [float(x) for x in emb[7] + 0.25]
+        for k in (1, 10):
+            p.same("knn", 0, q, k)
+            p.same("knn", 0, q, k, filter={"model_id": "m1"})
+            p.same("knn_batch", 0, [q, [float(x) for x in emb[9]]], k)
+            assert not p.t.knn_is_approximate(0, DIM, k)
+        assert p.t._vec[(0, DIM)].device[0].dtype == torch.float32
+    finally:
+        p.close()
 
 
 def test_int8_opens_and_serves(tmp_path, monkeypatch):

@@ -14,25 +14,28 @@ Device side: the caches live on one torch device (the CUDA card unless
 the caller names another) as float32 vectors and int32 tensors holding
 the u32 fingerprint words; under UCFP_KNN_QUANT=int8 (or knn_quant=
 "int8") the vector caches live as per-row int8 rows plus their norms
-instead (ops.knn.quantize_rows_int8), and under int4 as those plus the
-packed int4 columns and their inverse norms (ops.knn.pack_int4_cols,
-packed on the device). Queries run ops.knn (exact paths, the int8
-product and the int4 prefilter pipelines), ops.fused_scan (the CUDA
-candidate scans, at capacities of 32,768 rows or more), ops.int4_scan
-(the packed scans) and ops.imagehash.multihash_weighted_topk. The int4
-tier serves where the reference's cost model says it beats the exact
-int8 path (ops.knn.int4_beats_exact, int4_batch_beats_exact), so both
-packages serve the same tier. Row patches update the device tensors in
-place (saving a catalog copy per write); all work runs on one stream in
-launch order, so a query sees whole rows.
+instead (ops.knn.quantize_rows_int8); under int4 and int2 as those plus
+the packed columns and their inverse norms (ops.knn.pack_int4_cols,
+pack_int2_cols, packed on the device); under sketch as the int8 rows
+plus the lane-tiled sign sketch (ops.knn.build_sketch_chunked +
+tile_sketch, built on the device). Any other UCFP_KNN_QUANT value serves
+the exact f32 path, as in the reference. Queries run ops.knn (exact
+paths, the int8 product and the prefilter pipelines), ops.fused_scan
+(the CUDA candidate scans, at capacities of 32,768 rows or more),
+ops.int4_scan / int2_scan / sketch_scan (the prefilter scans) and
+ops.imagehash.multihash_weighted_topk. Each approximate tier serves where
+the reference's cost model says it beats the exact int8 path (the
+ops.knn *_beats_exact predicates), so both packages serve the same tier.
+Row patches update the device tensors in place (saving a catalog copy
+per write); all work runs on one stream in launch order, so a query sees
+whole rows.
 
 Query micro-batching (UCFP_QUERY_BATCH_MS > 0) coalesces concurrent
 plain knn() and knn_fingerprint() calls into one knn_batch /
 knn_fingerprint_batch dispatch per bucket, as the reference does.
 
-Not in this slice (later ports): sharding, the sketch and int2 tiers
-(they raise UnsupportedError), LSH / BM25 / audio indexes, and
-autocompaction. Records that need one of those indexes — text (BM25) or
+Not in this slice (later ports): sharding, LSH / BM25 / audio indexes,
+and autocompaction. Records that need one of those indexes — text (BM25) or
 the LSH, audio-landmark and haitsma algorithms — are refused on write,
 and a data directory that holds them raises UnsupportedError on open
 instead of dropping them.
@@ -72,8 +75,9 @@ HAITSMA_ALGORITHM = "audiofp-haitsma-v1"
 #: algorithms whose queries need an index this slice does not port yet
 LATER_SLICE_ALGOS = frozenset((LSH_ALGORITHM, *AUDIO_LANDMARK_ALGOS,
                                HAITSMA_ALGORITHM))
-#: the UCFP_KNN_QUANT modes this build serves
-SERVED_QUANT = ("none", "int8", "int4")
+#: the UCFP_KNN_QUANT tiers, whose vector caches hold int8 rows; "none" and
+#: any other value serve the exact f32 path, as in the reference
+QUANT_TIERS = ("int8", "int4", "int2", "sketch")
 
 
 def _record_event(rec: Record) -> dict:
@@ -268,14 +272,12 @@ class EmbeddedBackend(IndexBackend):
         self.device = resolve_device(device)
         # "none" = exact f32 cosine; "int8" = per-row symmetric int8 rows
         # (a quarter of the f32 bytes; scores are cosines of the quantized
-        # vectors); "int4" = int8 plus a packed int4 prefilter whose pool
-        # is rescored over the int8 rows. Also settable via UCFP_KNN_QUANT.
+        # vectors); "int4" / "int2" / "sketch" = int8 plus a packed int4,
+        # packed int2 or sign-sketch prefilter whose pool is rescored over
+        # the int8 rows. Also settable via UCFP_KNN_QUANT; other values
+        # serve the exact f32 path, as in the reference.
         self.knn_quant = (knn_quant or os.environ.get("UCFP_KNN_QUANT", "none")).lower()
-        if self.knn_quant not in SERVED_QUANT:
-            raise UnsupportedError(
-                f"UCFP_KNN_QUANT={self.knn_quant!r}: this build serves "
-                f"only {' and '.join(map(repr, SERVED_QUANT))}"
-            )
+        self._planes: dict[int, torch.Tensor] = {}  # dim -> device sketch planes
         # Query micro-batching (opt-in, UCFP_QUERY_BATCH_MS > 0):
         # concurrent plain single queries coalesce into one batched device
         # dispatch per (tenant, dim, k) or (tenant, algorithm, k) bucket
@@ -285,7 +287,8 @@ class EmbeddedBackend(IndexBackend):
         self._qbatch_max = max(1, int(os.environ.get("UCFP_QBATCH_MAX", "64") or 64))
         # the reference pads each flush to a power of two ("max": to
         # UCFP_QBATCH_MAX); the port does not pad, but dispatches a flush
-        # as at the padded size, since the int4 batch dispatch depends on it
+        # as at the padded size, since the int4 and int2 batch dispatch
+        # depends on it
         self._qbatch_pad = os.environ.get("UCFP_QBATCH_PAD", "pow2").lower()
         # kind ("vec"/"fp") -> {event loop -> DeadlineBatcher}
         self._batchers: dict[str, dict] = {}
@@ -925,13 +928,22 @@ class EmbeddedBackend(IndexBackend):
         width with zero columns for the int8 product (ops.knn.padded_dim);
         the host cache and the WAL keep D.
 
-        Under int4 with an even D the reference's 5-tuple (q8m, row_norm,
-        packed_t [D/2, cap] int8, inv_n4 [cap] f32, valid): the packed
-        columns are packed on the device from q8m[:, :D] and patched
-        column by column after small writes. Odd dims get no packed parts
-        (the dispatch serves them exact)."""
+        Under int4 with an even D (int2: D % 4 == 0) the reference's
+        5-tuple (q8m, row_norm, packed_t [D/2 or D/4, cap] int8, inv_n
+        [cap] f32, valid): the packed columns are packed on the device from
+        q8m[:, :D] and patched column by column after small writes; other
+        dims get no packed parts (the dispatch serves them exact). Under
+        sketch (q8m, row_norm, sketch [cap/128, 24, 128] int32, valid): the
+        lane-tiled sign sketch of q8m[:, :D], built on the device and
+        patched at [i // 128, :, i % 128] for row i."""
         cap, dim = cache.data.shape
-        packed = self._int4_on() and dim % 2 == 0
+        packed = ((self._int4_on() and dim % 2 == 0)
+                  or (self._int2_on() and dim % 4 == 0))
+        pack_full, pack_rows, min_pool, den = (
+            (knn_ops.pack_int2_cols_chunked, knn_ops.pack_int2_cols,
+             knn_ops.INT2_MIN_POOL, 4) if self._int2_on() else
+            (knn_ops.pack_int4_cols_chunked, knn_ops.pack_int4_cols,
+             knn_ops.INT4_MIN_POOL, 2))
         if cache.dirty or cache.device is None:
             cache.device = None  # the old copy can go before the new one lands
             q8m = torch.zeros((cap, knn_ops.padded_dim(dim)), dtype=torch.int8,
@@ -943,14 +955,17 @@ class EmbeddedBackend(IndexBackend):
                 q8m[lo:hi, :dim] = torch.from_numpy(q8).to(self.device)
                 row_norm[lo:hi] = torch.from_numpy(rn).to(self.device)
             parts = [q8m, row_norm]
-            if packed and cap > 2 * knn_ops.INT4_MIN_POOL:
-                parts += knn_ops.pack_int4_cols_chunked(q8m[:, :dim])
+            if packed and cap > 2 * min_pool:
+                parts += pack_full(q8m[:, :dim])
             elif packed:
-                # at or below 2 * INT4_MIN_POOL every k gives pool * 2 >=
-                # cap, so no query reads the packed columns: zero-width
+                # at or below 2 * MIN_POOL every k gives pool * 2 >= cap,
+                # so no query reads the packed columns: zero-width
                 # placeholders keep the layout (growth rebuilds in full)
-                parts += [torch.zeros((dim // 2, 0), dtype=torch.int8, device=self.device),
+                parts += [torch.zeros((dim // den, 0), dtype=torch.int8, device=self.device),
                           torch.zeros(0, dtype=torch.float32, device=self.device)]
+            if self._sketch_on():
+                parts.append(knn_ops.tile_sketch(knn_ops.build_sketch_chunked(
+                    q8m[:, :dim], self._sketch_planes(dim))))
             cache.device = (*parts, self._device_valid(cap, cache.n))
             cache.dirty = False
             cache.pending = []
@@ -964,18 +979,55 @@ class EmbeddedBackend(IndexBackend):
             row_norm[ridx] = torch.from_numpy(rn).to(self.device)
             parts = [q8m, row_norm]
             if packed:
-                packed_t, inv_n4 = cache.device[2], cache.device[3]
+                packed_t, inv_n = cache.device[2], cache.device[3]
                 if packed_t.shape[1]:  # real columns: catalog row i is column i
-                    pk, inv = knn_ops.pack_int4_cols(q8d)
+                    pk, inv = pack_rows(q8d)
                     packed_t[:, ridx] = pk
-                    inv_n4[ridx] = inv
-                parts += [packed_t, inv_n4]
+                    inv_n[ridx] = inv
+                parts += [packed_t, inv_n]
+            if self._sketch_on():
+                tiled = cache.device[2]
+                lanes = knn_ops.SKETCH_LANES
+                words = torch.arange(knn_ops.SKETCH_WORDS, device=self.device)
+                tiled[(ridx // lanes)[:, None], words[None, :], (ridx % lanes)[:, None]] = \
+                    knn_ops.sketch_rows_int8(q8d, self._sketch_planes(dim))
+                parts.append(tiled)
             cache.device = (*parts, self._device_valid(cap, cache.n))
             cache.pending = []
         return cache.device
 
     def _int4_on(self) -> bool:
         return self.knn_quant == "int4"
+
+    def _int2_on(self) -> bool:
+        return self.knn_quant == "int2"
+
+    def _sketch_on(self) -> bool:
+        return self.knn_quant == "sketch"
+
+    def _sketch_planes(self, dim: int) -> torch.Tensor:
+        """The [dim, SKETCH_BITS] hyperplanes on the device, made once per dim."""
+        p = self._planes.get(dim)
+        if p is None:
+            p = torch.from_numpy(knn_ops.sketch_planes(dim)).to(self.device)
+            self._planes[dim] = p
+        return p
+
+    def _int2_worth_it(self, cap: int, dim: int, k: int, fused: bool = True) -> bool:
+        """The reference's gate for the single-query int2 prefilter."""
+        return knn_ops.int2_beats_exact(cap, dim, knn_ops.int2_pool(cap, k), fused=fused)
+
+    def _int2_batch_worth_it(self, cap: int, dim: int, k: int, q: int) -> bool:
+        """The reference's gate for the batched int2 prefilter: a real
+        packed cache and a cost model that prefers it for q queries."""
+        if cap <= 2 * knn_ops.INT2_MIN_POOL:
+            return False  # zero-width placeholder packed cache
+        return knn_ops.int2_batch_beats_exact(cap, dim, q, knn_ops.int2_batch_pool(cap, k))
+
+    def _sketch_worth_it(self, cap: int, dim: int, k: int, pool_frac) -> bool:
+        """The reference's gate for the sketch prefilter: the cost model
+        must prefer it to the exact int8 scan at this (capacity, pool)."""
+        return knn_ops.sketch_beats_exact(cap, dim, knn_ops.sketch_pool(cap, k, pool_frac))
 
     def _int4_worth_it(self, cap: int, dim: int, k: int, fused: bool = True) -> bool:
         """The reference's gate for the single-query int4 prefilter: the
@@ -1027,12 +1079,14 @@ class EmbeddedBackend(IndexBackend):
                            filtered: bool = False) -> bool:
         """True when a (dim, k) vector query rides an approximate path —
         the fused candidate cells (near-exact for k <= 16, exact top-1)
-        or an int4 pool that does not cover the catalog — so the serving
-        layer marks the response. The reference's rules: batch=True
-        mirrors knn_batch's dispatch for `batch_q` queries (filtered
-        batches stay on the int8 path); a single query that
-        micro-batching may coalesce is judged at the worst case, a full
-        64-query flush. Every rule gates on min(k, n), as the dispatch
+        or a sketch, int4 or int2 pool that does not cover the catalog —
+        so the serving layer marks the response. The reference's rules, in
+        its order: a single sketch query where the cost model serves the
+        sketch (pool_frac is its pool); batch=True mirrors knn_batch's
+        dispatch for `batch_q` queries (filtered batches stay on the int8
+        path); a single query that micro-batching may coalesce is judged
+        at the worst case, a full 64-query flush; then the single-query
+        packed tiers. Every rule gates on min(k, n), as the dispatch
         does."""
         if exact:
             return False
@@ -1041,16 +1095,33 @@ class EmbeddedBackend(IndexBackend):
             return False
         kk = min(k, cache.n)
         cap = cache.data.shape[0]
-        if self._int4_on():
-            if batch and not filtered and self._int4_batch_worth_it(cap, dim, kk, batch_q):
-                return knn_ops.int4_batch_pool(cap, kk) * 2 < cap
+        if (self._sketch_on() and not batch
+                and self._sketch_worth_it(cap, dim, kk, pool_frac)):
+            return knn_ops.sketch_pool(cap, kk, pool_frac) * 2 < cap
+        tier = self._packed_tier()
+        if tier is not None:
+            worth, batch_worth, pool, batch_pool = tier[:4]
+            if batch and not filtered and batch_worth(cap, dim, kk, batch_q):
+                return batch_pool(cap, kk) * 2 < cap
             if (not batch and self._qbatch_ms > 0 and pool_frac is None
-                    and self._int4_batch_worth_it(cap, dim, kk, 64)
-                    and knn_ops.int4_batch_pool(cap, kk) * 2 < cap):
+                    and batch_worth(cap, dim, kk, 64) and batch_pool(cap, kk) * 2 < cap):
                 return True
-            if not batch and self._int4_worth_it(cap, dim, kk):
-                return knn_ops.int4_pool(cap, kk) * 2 < cap
+            if not batch and worth(cap, dim, kk):
+                return pool(cap, kk) * 2 < cap
         return self._fused_pool_ok(cap, cache.n, kk)
+
+    def _packed_tier(self):
+        """(single gate, batch gate, pool, batch pool, single pipeline,
+        batched pipeline) of the packed tier this backend serves, or None."""
+        if self._int4_on():
+            return (self._int4_worth_it, self._int4_batch_worth_it,
+                    knn_ops.int4_pool, knn_ops.int4_batch_pool,
+                    knn_ops.cosine_int4_topk, knn_ops.cosine_int4_topk_batched)
+        if self._int2_on():
+            return (self._int2_worth_it, self._int2_batch_worth_it,
+                    knn_ops.int2_pool, knn_ops.int2_batch_pool,
+                    knn_ops.cosine_int2_topk, knn_ops.cosine_int2_topk_batched)
+        return None
 
     def fingerprint_is_approximate(self, tenant_id: int, algorithm: str,
                                    k: int) -> bool:
@@ -1101,8 +1172,9 @@ class EmbeddedBackend(IndexBackend):
         """Cosine top-k: empty query, k=0 or zero-norm query -> empty;
         only vectors of matching dim. exact forces the exhaustive scan;
         filter {"algorithm", "model_id"} masks rows on the device.
-        pool_frac only tunes the sketch tier, which this build lacks; a
-        query that names one is not micro-batched, as in the reference."""
+        pool_frac sets the sketch tier's rescore pool (snapped to the
+        reference's tiers); a query that names one is not micro-batched,
+        as in the reference."""
         if not query or k == 0:
             return []
         pool_frac = quantize_pool_frac(pool_frac)  # the reference's ValueError
@@ -1120,7 +1192,8 @@ class EmbeddedBackend(IndexBackend):
             # opt-in micro-batching (see __init__), after the cheap host
             # early-outs so degenerate queries never wait for a window
             return await self._submit_query_batched(tenant_id, list(query), k)
-        res = await self._knn_rows(cache, q[None], k, filter, exact, single=True)
+        res = await self._knn_rows(cache, q[None], k, filter, exact, single=True,
+                                   pool_frac=pool_frac)
         return res[0]
 
     async def knn_batch(
@@ -1130,8 +1203,8 @@ class EmbeddedBackend(IndexBackend):
     ) -> list[list[Hit]]:
         """Batched cosine top-k: all queries share ONE device product.
         Zero-norm queries get empty lists. dispatch_q: the batch size the
-        int4 dispatch is judged at (default the batch's own; a micro-batch
-        flush passes the reference's padded size)."""
+        int4 and int2 dispatch is judged at (default the batch's own; a
+        micro-batch flush passes the reference's padded size)."""
         if k == 0 or not queries:
             return [[] for _ in queries]
         dims = {len(q) for q in queries}
@@ -1206,36 +1279,44 @@ class EmbeddedBackend(IndexBackend):
         return fused_scan.scores_topk_fused_batched(sc, kk)
 
     def _quant_topk(self, qm: np.ndarray, dev: tuple, kk: int, n: int, exact: bool,
-                    unfiltered: bool, single: bool, dispatch_q: int):
-        """The reference's quantized dispatch: the int4 prefilter where its
-        gate passes (single: fused when unfiltered, the dots kernel plus a
-        mask when filtered; batch: unfiltered only), else the int8 path."""
+                    unfiltered: bool, single: bool, dispatch_q: int, pool_frac=None):
+        """The reference's quantized dispatch, in its order. Single: the
+        sketch prefilter where its gate passes (filtered too: the filter
+        is in `valid`), then the int4 or int2 prefilter (fused when
+        unfiltered, a mask pass when filtered); batch: int4 or int2,
+        unfiltered only. Everything else takes the int8 path."""
         cap, dim = dev[0].shape[0], qm.shape[1]
         # unfiltered queries: validity is the prefix rule, which the fused
         # kernels apply in-stream
         n_prefix = n if unfiltered else None
-        if self._int4_on() and not exact:
-            if single and self._int4_worth_it(cap, dim, kk, fused=unfiltered):
-                q8m, row_norm, packed_t, inv_n4, valid = dev
-                s1, i1 = knn_ops.cosine_int4_topk(
-                    torch.from_numpy(qm[0]).to(self.device), q8m, row_norm, packed_t,
-                    inv_n4, valid, kk, knn_ops.int4_pool(cap, kk), n_valid=n_prefix)
+        if not exact and single and self._sketch_on() and self._sketch_worth_it(
+                cap, dim, kk, pool_frac):
+            q8m, row_norm, sketch, valid = dev
+            s1, i1 = knn_ops.cosine_sketch_topk(
+                torch.from_numpy(qm[0]).to(self.device), self._sketch_planes(dim), q8m,
+                row_norm, sketch, valid, kk, knn_ops.sketch_pool(cap, kk, pool_frac))
+            return s1[None, :], i1[None, :]
+        tier = None if exact else self._packed_tier()
+        if tier is not None:
+            worth, batch_worth, pool, pool_b, pipe, pipe_b = tier
+            if single and worth(cap, dim, kk, fused=unfiltered):
+                q8m, row_norm, packed_t, inv_n, valid = dev
+                s1, i1 = pipe(torch.from_numpy(qm[0]).to(self.device), q8m, row_norm,
+                              packed_t, inv_n, valid, kk, pool(cap, kk), n_valid=n_prefix)
                 return s1[None, :], i1[None, :]
-            if (not single and unfiltered
-                    and self._int4_batch_worth_it(cap, dim, kk, dispatch_q)):
-                q8m, row_norm, packed_t, inv_n4, _valid = dev
-                return knn_ops.cosine_int4_topk_batched(
-                    torch.from_numpy(qm).to(self.device), q8m, row_norm, packed_t,
-                    inv_n4, n, kk, knn_ops.int4_batch_pool(cap, kk))
+            if not single and unfiltered and batch_worth(cap, dim, kk, dispatch_q):
+                q8m, row_norm, packed_t, inv_n, _valid = dev
+                return pipe_b(torch.from_numpy(qm).to(self.device), q8m, row_norm,
+                              packed_t, inv_n, n, kk, pool_b(cap, kk))
         q8m, row_norm, valid = dev[0], dev[1], dev[-1]
         topk = self._int8_single_topk if single else self._int8_batch_topk
         return topk(qm[0] if single else qm, q8m, row_norm, valid, kk, n, exact, n_prefix)
 
     async def _knn_rows(self, cache: _RowCache, qm: np.ndarray, k: int,
                         filter: Optional[dict], exact: bool,
-                        single: bool = False,
-                        dispatch_q: int = 1) -> list[list[Hit]]:
-        quant = self.knn_quant in ("int8", "int4")
+                        single: bool = False, dispatch_q: int = 1,
+                        pool_frac=None) -> list[list[Hit]]:
+        quant = self.knn_quant in QUANT_TIERS
 
         def work(_attempt=0, _last=2):
             with self._lock:
@@ -1250,7 +1331,8 @@ class EmbeddedBackend(IndexBackend):
             kk = min(k, n_snap)
             if quant:
                 scores, idx = self._quant_topk(qm, dev, kk, n_snap, exact,
-                                               flt_mask is True, single, dispatch_q)
+                                               flt_mask is True, single, dispatch_q,
+                                               pool_frac)
             else:
                 matrix, valid = dev
                 qd = torch.from_numpy(qm).to(self.device)
@@ -1281,8 +1363,9 @@ class EmbeddedBackend(IndexBackend):
     # The reference pads each flush to a power of two (UCFP_QBATCH_PAD)
     # to bound XLA's compiles per shape; the padded rows are sliced off,
     # and PyTorch compiles nothing per shape, so the port runs each flush
-    # at its own size. The batch size still picks the int4 tier (its cost
-    # model takes Q), so a flush is dispatched as at the padded size.
+    # at its own size. The batch size still picks the int4 and int2 tiers
+    # (their cost models take Q), so a flush is dispatched as at the
+    # padded size.
 
     def _deadline_batcher(self, kind: str, run):
         """Per-event-loop DeadlineBatcher registry: a batcher holds

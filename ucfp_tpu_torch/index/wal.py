@@ -11,7 +11,9 @@ codec with CRC32 and one fsync per batch; the JSON path keeps hex-encoded
 lines. Replay tolerates torn tails in both.
 
 Copied from ucfp_tpu/index/wal.py; only its imports and comments differ
-(they no longer quote the reference's measurements).
+(they no longer quote the reference's measurements), and the bulk
+replay's copy of the native buffer (_copy_out), which replays logs of
+2 GiB or more.
 """
 
 from __future__ import annotations
@@ -680,6 +682,21 @@ _MIN_RUN = 8
 _MAX_RUN = 262144
 
 
+def _copy_out(ptr, nbytes: int):
+    """`nbytes` at a ctypes pointer -> a numpy uint8 array owning a copy:
+    one memcpy through the buffer protocol. (ctypes.string_at, which the
+    reference uses here, takes its size as a C int, so a log of 2 GiB or
+    more replayed short and failed.)"""
+    import ctypes
+
+    import numpy as np
+
+    if nbytes == 0:
+        return np.zeros(0, np.uint8)
+    buf = (ctypes.c_uint8 * nbytes).from_address(ctypes.addressof(ptr.contents))
+    return np.frombuffer(buf, np.uint8).copy()
+
+
 def iter_frame_groups(data, offs) -> Iterator[tuple[str, object]]:
     """Group a replay's raw frames into ("fp_run", run) | ("emb_run",
     run) | ("events", [dict, ...]) items, preserving order. `data` is
@@ -869,8 +886,6 @@ class NativeWal:
         as columns, and nothing crosses ctypes per record."""
         import ctypes
 
-        import numpy as np
-
         data_p = ctypes.POINTER(ctypes.c_uint8)()
         offs_p = ctypes.POINTER(ctypes.c_uint64)()
         n = self._lib.ucfp_wal_replay_concat(
@@ -881,13 +896,8 @@ class NativeWal:
         if n == 0:
             return
         try:
-            # string_at is ONE memcpy into Python-owned bytes;
-            # np.frombuffer over it is zero-copy (as_array().copy()
-            # walks the ctypes buffer element-wise)
-            offs = np.frombuffer(
-                ctypes.string_at(offs_p, (n + 1) * 8), "<u8")
-            data = np.frombuffer(
-                ctypes.string_at(data_p, int(offs[-1])), np.uint8)
+            offs = _copy_out(offs_p, (n + 1) * 8).view("<u8")
+            data = _copy_out(data_p, int(offs[-1]))
         finally:
             self._lib.ucfp_wal_buf_free(data_p)
             self._lib.ucfp_wal_buf_free(offs_p)

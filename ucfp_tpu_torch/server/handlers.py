@@ -445,7 +445,7 @@ class Handlers:
                 tenant_id, len(vectors[0]), k, batch=True, exact=exact,
                 batch_q=len(vectors), filtered=flt is not None,
             ):
-                out["approximate"] = True  # fused candidates or an int4 pool
+                out["approximate"] = True  # fused candidates or an int4/int2 pool
             return Response.json(out)
 
         fps_hex = body.get("fingerprints_hex")
