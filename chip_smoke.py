@@ -21,7 +21,9 @@ each:
                   indices) bit-equal at 2^22 and 2^23 rows (and D = 772),
                   the sketch scan bit-equal on three plans at 2^22 and
                   2^23, and the int2 pack and the sketch build on the card
-                  equal to the same steps on the CPU
+                  equal to the same steps on the CPU; the single-query
+                  Hamming scan (#6) bit-equal at 2^20 rows (a shard) and
+                  2^23, W = 2 and 16, and on tie-heavy catalogs
   4. conformance  the image hashes computed on the card against
                   tests/goldens/conformance.json
   5. served       the port's EmbeddedBackend on the card, bulk-loaded with
@@ -60,15 +62,28 @@ each:
                   the cost model), vectors x32, the exact tier; an upsert
                   (the tiled sketch patch), a fast query that finds it, a
                   delete
+ 11. sharded      a mesh of 8 shards on the one card: (a) every sharded
+                  function of parallel.sharded_knn on device tensors made
+                  from a seed (the fused Hamming scan at 2^23 x 2 words;
+                  int8, int4, int2 and sketch at 2^22 x 768, single and
+                  batched forms at Q = 1 and 32, filtered and not; int4
+                  batched and sketch also on a 2 x 4 mesh) held against the
+                  same function with every kernel swapped for its plain
+                  version, values and rows bit-equal; (b) an int8
+                  EmbeddedBackend on that mesh, bulk-loaded with 2^20 - 1024
+                  pHash rows and 2^20 - 1024 x 768 vectors, served over
+                  loopback HTTP: fingerprint_hex, fingerprints_hex x32,
+                  vector, vectors x32, a filtered vector, the exact tier, an
+                  upsert that a query finds, a delete
 
-In phases 5-10 every served answer is checked against the plain path on
+In phases 5-11 every served answer is checked against the plain path on
 the same device tensors (or, in phases 7 and 8, the micro-batched answer
 against the unbatched one), and the launch count of every kernel that
 the phase's path runs must rise between a reset just before the phase's
 requests and a read just after. Then one JSON line with every kernel's
-numbers (launches summed over phases 5-10), and last the line
+numbers (launches summed over phases 5-11), and last the line
 {"ok": true, "device": {...}}.
---phases picks a subset (default: all ten).
+--phases picks a subset (default: all eleven).
 """
 
 import argparse
@@ -139,6 +154,15 @@ INT2_ROWS = 1 << 22
 INT2_KERNEL_ROWS = (INT2_ROWS, 1 << 23)
 SKETCH_ROWS = INT2_ROWS
 SKETCH_KERNEL_ROWS = (SKETCH_ROWS, 1 << 23)
+# phase 11: 8 shards on the one card. The fused Hamming scan at phase 5's
+# 2^23 x 64-bit shape (2^20 rows per shard, the shard size phase 3 holds
+# #6 at); the quantized tiers at phases 8-10's 2^22 x 768 (2^19 rows per
+# shard); the served store at 2^20 rows, to keep the phase near 150 s.
+SHARDS = 8
+SHARD_HAMMING_ROWS = 1 << 23
+SHARD_VEC_ROWS = 1 << 22
+SHARD_SERVED_ROWS = 1 << 20
+SHARD_RUNS = 10  # CUDA-event samples per phase-11 timing
 
 PHASH = "imgfprint-phash-v1"
 MULTI = "imgfprint-multi-v1"
@@ -365,6 +389,10 @@ def phase_kernels(torch, dev, card: dict) -> dict:
     results.update(sketch_build=[], sketch=[])
     for c in SKETCH_KERNEL_ROWS:
         _kernels_sketch(torch, dev, card, g, c, results)
+    results["hamming1"] = []
+    for c, w, ties in ((1 << 20, 2, False), (1 << 23, 2, False), (1 << 20, 16, False),
+                       (1 << 23, 16, False), (1 << 20, 2, True), (1 << 23, 16, True)):
+        _kernels_hamming1(torch, dev, card, g, k, c, w, ties, results)
     for name, rows in results.items():
         say(f"kernels/{name}: " + json.dumps(rows))
     return results
@@ -905,6 +933,54 @@ def _kernels_sketch(torch, dev, card: dict, g, c: int, results: dict) -> None:
         "library_ms": None, "bound_ms": b, "bound_by": by,
     })
     del tiled
+    torch.cuda.empty_cache()
+
+
+def _kernels_hamming1(torch, dev, card: dict, g, k: int, c: int, w: int, ties: bool,
+                      results: dict) -> None:
+    """Kernel #6 (one query, no mask, 256-row tiles) against its plain
+    version, cells and top-k bit-equal: a random catalog with one row
+    copied into its own tile and into the last one, or a tie-heavy catalog
+    of four distinct rows, where the (tile, lane) position order decides
+    every tie."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+
+    if ties:
+        base = torch.randint(-2**31, 2**31, (4, w), generator=g, device=dev,
+                             dtype=torch.int32)
+        db = base[torch.randint(0, 4, (c,), generator=g, device=dev)].contiguous()
+    else:
+        db = torch.randint(-2**31, 2**31, (c, w), generator=g, device=dev,
+                           dtype=torch.int32)
+        db[100:300] = db[7]
+        db[c - 500:c - 300] = db[7]
+    for qi, q in enumerate((db[7].clone(), db[c - 1] ^ 1, db[5] ^ -1)):
+        cells_k = fs._hamming1_cells_cuda(q, db)
+        torch.cuda.synchronize()
+        cells_p = fs._hamming1_cells_plain(q, db)
+        check(torch.equal(cells_k[0], cells_p[0]) and torch.equal(cells_k[1], cells_p[1]),
+              f"hamming1 cells equal c={c} w={w} ties={ties}")
+        dk, ik = fs.hamming_topk_fused(q, db, k)
+        torch.cuda.synchronize()
+        dp, ip = fs.hamming_topk_fused_plain(q, db, k)
+        check(torch.equal(dk, dp) and torch.equal(ik, ip),
+              f"hamming_topk_fused equal c={c} w={w} ties={ties}")
+        if qi == 0:
+            # lane 0's cell holds copies of row 7 (rows 128, 256): at
+            # distance 0 the lower cell position wins, not the lower row
+            check(int(dk[0]) == 0 and (ties or int(ik[0]) == 128),
+                  f"hamming_topk_fused position order c={c} w={w}")
+    # rows read once, the query, the k best written; per row w XORs, w - 1
+    # adds and a compare (ALU), w popcounts
+    b, by = bound_ms(card, c * 4 * w + w * 4 + k * 8, alu_ops=c * 2 * w, popc_ops=c * w)
+    results["hamming1"].append({
+        "c": c, "w": w, "ties": ties, "max_abs_err": _max_abs(torch, dk, dp),
+        "ms": time_ms(torch, lambda: fs.hamming_topk_fused(q, db, k)),
+        "cells_ms": time_ms(torch, lambda: fs._hamming1_cells_cuda(q, db)),
+        "plain_ms": time_ms(torch, lambda: fs.hamming_topk_fused_plain(q, db, k)),
+        "library_ms": None, "bound_ms": b, "bound_by": by,
+    })
+    del db
     torch.cuda.empty_cache()
 
 
@@ -1858,6 +1934,295 @@ def phase_sketch(torch, dev) -> dict:
         _close_backend(torch, server, backend, tmp)
 
 
+# -- phase 11 -------------------------------------------------------------------
+
+
+def _same_result(torch, got, want) -> bool:
+    return _same_bits(torch, got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _vec_shards(torch, dev, g, c: int, meshes) -> dict:
+    """A 2^22 x 768 int8 catalog made on the card, with a zero row and a
+    row copied into another shard, cut into the mesh's row blocks, with
+    each block's packed int4 and int2 columns and tiled sketch built on
+    the card (column and tile-row blocks of the whole)."""
+    from ucfp_tpu_torch.ops import knn
+    from ucfp_tpu_torch.parallel.sharded_knn import ShardedTensor, shard_tensor
+
+    mesh = meshes["1d"]
+    q8 = torch.randint(-127, 128, (c, knn.padded_dim(DIM)), generator=g, device=dev,
+                       dtype=torch.int8)
+    q8[3] = 0
+    q8[c // 2 + 9] = q8[9]  # a tie across shards
+    rn = torch.empty(c, device=dev)
+    for lo in range(0, c, 1 << 18):
+        rn[lo:lo + (1 << 18)] = knn.int8_norms(q8[lo:lo + (1 << 18), :DIM])
+    rows = c // SHARDS
+    blocks = [q8[s * rows:(s + 1) * rows, :DIM] for s in range(SHARDS)]
+    planes = torch.from_numpy(knn.sketch_planes(DIM)).to(dev)
+    p4 = [knn.pack_int4_cols_chunked(b) for b in blocks]
+    p2 = [knn.pack_int2_cols_chunked(b) for b in blocks]
+    n = c - 1024
+    valid = torch.arange(c, device=dev) < n
+    fvalid = valid & (torch.arange(c, device=dev) % 3 != 0)
+    picks = torch.randint(0, n, (32,), generator=g, device=dev)
+    picks[0] = 9
+    picks[1] = 6  # a filtered-out row (6 % 3 == 0) for the unfiltered forms
+    noise = torch.randn((32, DIM), generator=g, device=dev) * 2.0
+    return {
+        "q8": shard_tensor(q8, mesh), "rn": shard_tensor(rn, mesh),
+        "valid": shard_tensor(valid, mesh), "fvalid": shard_tensor(fvalid, mesh),
+        "p4": ShardedTensor([p[0] for p in p4], 1), "i4": ShardedTensor([p[1] for p in p4]),
+        "p2": ShardedTensor([p[0] for p in p2], 1), "i2": ShardedTensor([p[1] for p in p2]),
+        "sketch": ShardedTensor([knn.tile_sketch(knn.build_sketch_chunked(b, planes))
+                                 for b in blocks]),
+        "planes": planes, "n": n, "picks": picks.tolist(),
+        "queries": q8[picks, :DIM].float() + noise,
+    }
+
+
+def _sharded_direct(torch, dev, g, meshes) -> list:
+    """Phase 11(a): every sharded function with the kernels, then with
+    their plain versions (the int8 product too), on the same tensors;
+    values and rows bit-equal, the stored row at rank 1. Returns the
+    (name, call) pairs to time, run after the launch counts are read."""
+    from ucfp_tpu_torch.ops import knn
+    from ucfp_tpu_torch.parallel import sharded_knn as sk
+
+    k = 10
+    mesh = meshes["1d"]
+    timings = []
+
+    def hold(name, fn, want_rows=None, mesh_name="1d", timed=True):
+        got = fn(meshes[mesh_name])
+        torch.cuda.synchronize()
+        with _plain_quant_path(torch):
+            want = fn(meshes[mesh_name])
+        check(_same_result(torch, got, want), f"sharded {name} ({mesh_name}) == plain path")
+        if want_rows is not None:
+            top = got[1] if got[1].dim() == 1 else got[1][:, 0]
+            check(top.reshape(-1)[:len(want_rows)].tolist() == want_rows,
+                  f"sharded {name}: stored rows at rank 1")
+        if timed:
+            timings.append((name, lambda: fn(meshes[mesh_name])))
+        return got
+
+    # the fused Hamming scan (#6 per shard) at 2^23 x 2 words, rows of one
+    # value repeated so that cell position order decides ties
+    c = SHARD_HAMMING_ROWS
+    db = torch.randint(-2**31, 2**31, (c, 2), generator=g, device=dev, dtype=torch.int32)
+    db[1000:1300] = db[7]
+    db[c - 5000:c - 4000] = db[7]
+    dbs = sk.shard_tensor(db, mesh)
+    for name, q in (("hamming_fused", db[7].clone()), ("hamming_fused_far", db[7] ^ -1),
+                    ("hamming_fused_last", db[c - 1] ^ 3)):
+        got = hold(name, lambda m, q=q: sk.sharded_hamming_topk_fused(q, dbs, k, m),
+                   timed=name == "hamming_fused")
+        if name == "hamming_fused":
+            # rows 1024 and 1152 hold row 7's value in cell (0, 0): the
+            # lower cell position wins over the lower row
+            check(got[0].tolist()[:2] == [0, 0] and int(got[1][0]) == 1024,
+                  f"sharded fused Hamming position order: {got[1][:4].tolist()}")
+    exact = sk.sharded_hamming_topk(db[7][None], dbs, sk.shard_tensor(
+        torch.ones(c, dtype=torch.bool, device=dev), mesh), k, mesh)
+    check(exact[1][0, 0].item() == 7 and int(exact[0][0, 0]) == 0,
+          "exact sharded Hamming: row 7 at distance 0")
+
+    v = _vec_shards(torch, dev, g, SHARD_VEC_ROWS, meshes)
+    qs, picks, n = v["queries"], v["picks"], v["n"]
+    qq = knn._quantize_query(qs[0])
+    cand_fast = knn.sketch_pool(SHARD_VEC_ROWS, k, 0.0066)
+    cand = knn.sketch_pool(SHARD_VEC_ROWS, k)
+    hold("int8", lambda m: sk.sharded_cosine_int8_topk(qq, v["q8"], v["rn"], v["valid"],
+                                                       k, m), [9])
+    for q in (1, 32):
+        hold(f"int8_batch_q{q}", lambda m, q=q: sk.sharded_cosine_int8_batch_topk(
+            qs[:q], v["q8"], v["rn"], v["valid"], k, m), picks[:q])
+    for kind, fn, fn_b in (("int4", sk.sharded_cosine_int4_topk,
+                            sk.sharded_cosine_int4_batch_topk),
+                           ("int2", sk.sharded_cosine_int2_topk,
+                            sk.sharded_cosine_int2_batch_topk)):
+        pk, inv = v["p4" if kind == "int4" else "p2"], v["i4" if kind == "int4" else "i2"]
+        hold(kind, lambda m, fn=fn, pk=pk, inv=inv: fn(
+            qs[0], v["q8"], v["rn"], pk, inv, v["valid"], k, m, m.axis_names, n_valid=n), [9])
+        hold(f"{kind}_filter", lambda m, fn=fn, pk=pk, inv=inv: fn(
+            qs[1], v["q8"], v["rn"], pk, inv, v["fvalid"], k, m, m.axis_names))
+        for q in (1, 32):
+            hold(f"{kind}_batch_q{q}", lambda m, q=q, fn_b=fn_b, pk=pk, inv=inv: fn_b(
+                qs[:q], v["q8"], v["rn"], pk, inv, n, k, m, m.axis_names), picks[:q])
+    for tier, cnd in (("fast", cand_fast), ("default", cand)):
+        hold(f"sketch_{tier}", lambda m, cnd=cnd: sk.sharded_cosine_sketch_topk(
+            qs[0], v["planes"], v["q8"], v["rn"], v["sketch"], v["valid"], k, cnd, m,
+            m.axis_names), [9])
+    hold("sketch_fast_filter", lambda m: sk.sharded_cosine_sketch_topk(
+        qs[1], v["planes"], v["q8"], v["rn"], v["sketch"], v["fvalid"], k, cand_fast, m,
+        m.axis_names), timed=False)
+    # the 2 x 4 mesh: the hierarchical merge gives the 1-D mesh's answer
+    for name, fn in (
+            ("int4_batch_q32", lambda m: sk.sharded_cosine_int4_batch_topk(
+                qs, v["q8"], v["rn"], v["p4"], v["i4"], n, k, m, m.axis_names)),
+            ("sketch_fast", lambda m: sk.sharded_cosine_sketch_topk(
+                qs[0], v["planes"], v["q8"], v["rn"], v["sketch"], v["valid"], k,
+                cand_fast, m, m.axis_names))):
+        got = hold(f"{name}_2x4", fn, mesh_name="2x4", timed=False)
+        check(_same_result(torch, got, fn(mesh)), f"sharded {name}: 2 x 4 mesh == 1-D mesh")
+    return timings
+
+
+def _time_sharded(torch, timings: list) -> dict:
+    """Each sharded call's time with the kernels and with the plain
+    versions (CUDA events, median of SHARD_RUNS)."""
+    out = {"ms": {}, "plain_ms": {}}
+    for name, fn in timings:
+        out["ms"][name] = time_ms(torch, fn, SHARD_RUNS)
+        with _plain_quant_path(torch):
+            out["plain_ms"][name] = time_ms(torch, fn, SHARD_RUNS)
+    return out
+
+
+def _sharded_plain_hits(torch, backend, body, k):
+    """The plain path of a served phase-11 request, on the backend's own
+    device tensors: the kernels and the int8 product swapped for their
+    plain versions (vectors); for fingerprints the unsharded exact scan
+    over the gathered shards."""
+    import numpy as np
+
+    from ucfp_tpu_torch.ops import knn
+
+    if "vector" in body or "vectors" in body:
+        return _plain_quant_rows(torch, backend, body)
+    cache = backend._ham[(0, PHASH)]
+    matrix, valid = (t.full() for t in cache.device)
+    hexes = body.get("fingerprints_hex") or [body["fingerprint_hex"]]
+    qm = np.stack([np.frombuffer(bytes.fromhex(h), "<u4") for h in hexes])
+    d, i = knn.hamming_topk(torch.from_numpy(qm.view(np.int32)).to(matrix.device),
+                            matrix, valid, min(k, cache.n))
+    out = []
+    for dr, ir in zip(d.cpu().numpy(), i.cpu().numpy()):
+        rows = [(cache.rids[int(x)], 1.0 - int(y) / 64) for y, x in zip(dr, ir) if y < 2**30]
+        rows.sort(key=lambda t: (-t[1], t[0]))
+        out.append(rows)
+    return out
+
+
+def phase_sharded(torch, dev, n_served: int = SHARD_SERVED_ROWS) -> dict:
+    """Phase 11: (a) the sharded functions on device tensors, (b) an int8
+    EmbeddedBackend on a mesh of 8 shards of the card, served over
+    loopback HTTP, every answer held against the plain path."""
+    import numpy as np
+
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.parallel import mesh as pm
+    from ucfp_tpu_torch.parallel.sharded_knn import ShardedTensor
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(4321)
+    meshes = {"1d": pm.data_mesh(SHARDS, devices=[dev] * SHARDS),
+              "2x4": pm.data_mesh_2d(2, SHARDS // 2, devices=[dev] * SHARDS)}
+
+    # ---- (a), the direct calls: launch counts read over exactly this block
+    reset_counts()
+    timings = _sharded_direct(torch, dev, g, meshes)
+    launches_a = read_counts()
+    # ---- end of (a)
+    check(all(launches_a[name] > 0 for name in (
+        "hamming_topk_fused", "int4_masked_scores", "int4_dots",
+        "int4_masked_scores_batched", "scores_topk_fused_batched", "int2_masked_scores",
+        "int2_masked_scores_batched", "asym_sketch_scores_tiled")),
+        f"every per-shard kernel of the sharded functions launched: {launches_a}")
+    direct = _time_sharded(torch, timings)
+    del timings
+    torch.cuda.empty_cache()
+    t_direct = time.perf_counter() - t_phase
+
+    # ---- (b), served
+    n = n_served - 1024  # served upserts land below the loaded capacity
+    k = 10
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-sharded-")
+    backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev, knn_quant="int8",
+                              mesh=meshes["1d"])
+    server = None
+    try:
+        check(backend._n_shards() == SHARDS, "the backend took the 8-shard mesh")
+        load = _bulk_load(torch, backend, n, 0, n, DIM, seed=21, dev=dev,
+                          model_ids=("m0", "m1"), vec_fp_bytes=8)
+        vcache, hcache = backend._vec[(0, DIM)], backend._ham[(0, PHASH)]
+        rng = np.random.default_rng(22)
+        picks = [int(x) for x in rng.integers(0, n, 32)]
+        vecs = [[float(x) for x in vcache.data[p] + rng.normal(0, 0.01, DIM)] for p in picks]
+        want = [vcache.rids[p] for p in picks]
+        model = ["m0" if (p >> 15) % 2 == 0 else "m1" for p in picks]
+        fpicks = [int(x) for x in rng.integers(0, n, 32)]
+        hexes = [backend.get_record(0, hcache.rids[p])["fingerprint"].hex() for p in fpicks]
+        token = "smoke-token"
+        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        call = _Client(server.port, token)
+        base = {"tenant_id": 0, "modality": "image", "k": k}
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: launch counts are read over exactly this block
+        reset_counts()
+        t0 = time.perf_counter()
+        st, res, _ = call("POST", "/v1/query", {**base, "vector": vecs[0]})
+        first_s = time.perf_counter() - t0  # builds the 8 int8 shards
+        check(st == 200, f"first sharded query: {st} {res}")
+        lat = {}
+
+        def served(form, body):
+            times = []
+            for _ in range(SERVED_REPS):
+                st, res, ms = call("POST", "/v1/query", body)
+                check(st == 200, f"sharded {form}: {st} {res}")
+                times.append(ms)
+            lat[form] = statistics.median(times)
+            rows = _served_rows(body, res) if ("vector" in body or "vectors" in body) else (
+                [_hit_rows(r["hits"]) for r in res["results"]] if "results" in res
+                else [_hit_rows(res["hits"])])
+            check(rows == _sharded_plain_hits(torch, backend, body, k),
+                  f"sharded {form} hits == plain path")
+            check("approximate" not in res, f"sharded {form}: exact, not marked approximate")
+            return rows
+
+        fp = {**base, "algorithm": "phash"}
+        rows = served("fingerprint_hex", {**fp, "fingerprint_hex": hexes[0]})
+        check(rows[0][0] == (hcache.rids[fpicks[0]], 1.0), "stored pHash at rank 1")
+        rows = served("fingerprints_hex", {**fp, "fingerprints_hex": hexes})
+        check([r[0] for r in rows] == [(hcache.rids[p], 1.0) for p in fpicks],
+              "32 stored pHashes at rank 1")
+        rows = served("vector", {**base, "vector": vecs[0]})
+        check(rows[0][0][0] == want[0], "sharded int8: noisy stored vector at rank 1")
+        rows = served("vectors", {**base, "vectors": vecs})
+        check([r[0][0] for r in rows] == want, "sharded int8: 32 noisy stored vectors at rank 1")
+        rows = served("vector_filter", {**base, "vector": vecs[0],
+                                        "filter": {"model_id": model[0]}})
+        check(rows[0][0][0] == want[0], "sharded int8 filtered vector at rank 1")
+        rows = served("vector_exact", {**base, "vector": vecs[0], "recall_tier": "exact"})
+        check(rows[0][0][0] == want[0], "sharded int8 exact tier at rank 1")
+        shards = [list(t.shards) for t in vcache.device[:-1]]
+        _upsert_find_delete(torch, backend, call, base, 11 * 10**8, seed=23)
+        launches_b = read_counts()
+        # ---- end of the main path
+        check([list(t.shards) for t in vcache.device[:-1]] == shards
+              and all(isinstance(t, ShardedTensor) for t in vcache.device),
+              "the row patches stayed in the 8 shard tensors")
+        launches = {name: launches_a[name] + launches_b[name] for name in launches_a}
+        out = {
+            "shards": SHARDS, "direct": direct, "direct_s": t_direct,
+            "served": {"rows": {"vectors": vcache.n, "phash": hcache.n, "dim": DIM},
+                       "load_s": load, "first_query_s": first_s, "p50_ms": lat,
+                       "launches": launches_b},
+            "launches": launches, "phase_s": time.perf_counter() - t_phase,
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "host_gib": host_gib(),
+        }
+        say("sharded: " + json.dumps(out))
+        return out
+    finally:
+        _close_backend(torch, server, backend, tmp)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1902,6 +2267,9 @@ def _findings_line(kernels: dict, served: list) -> dict:
          pick(kernels["int2_topq"], c=INT2_ROWS), {"q": 1, "d": DIM}),
         ("asym_sketch_scores_tiled", knn, 366, "sketch",
          pick(kernels["sketch"], c=SKETCH_ROWS), {"q": 1, "bits": 768}),
+        ("hamming_topk_fused", scan, 95, "hamming1",
+         pick(kernels["hamming1"], c=SHARD_HAMMING_ROWS // SHARDS, w=2, ties=False),
+         {"q": 1, "w": 2}),
     )
     return {"kernels": [
         {"name": name, "route": "cuda",
@@ -1919,7 +2287,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="device,build,kernels,conformance,served,int8,qbatch,int4,"
-                           "int2,sketch")
+                           "int2,sketch,sharded")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -1944,7 +2312,8 @@ def main() -> int:
     served = []
     for name, phase in (("served", phase_served), ("int8", phase_int8),
                         ("qbatch", phase_qbatch), ("int4", phase_int4),
-                        ("int2", phase_int2), ("sketch", phase_sketch)):
+                        ("int2", phase_int2), ("sketch", phase_sketch),
+                        ("sharded", phase_sharded)):
         if name in phases:
             served.append(phase(torch, dev))
     if kernels is not None:

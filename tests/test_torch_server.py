@@ -280,6 +280,8 @@ def test_imports_without_jax_or_reference():
         if p.name != "__init__.py" or p.parent != REPO / "ucfp_tpu_torch"
     )
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    assert {"ucfp_tpu_torch.parallel", "ucfp_tpu_torch.parallel.mesh",
+            "ucfp_tpu_torch.parallel.sharded_knn"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

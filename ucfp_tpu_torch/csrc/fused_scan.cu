@@ -1,6 +1,6 @@
 // Fused per-(tile, lane) candidate scans for the served top-k paths.
 //
-// Both kernels compute the candidate cells of ucfp_tpu/ops/pallas_scan.py
+// Every kernel here computes the candidate cells of ucfp_tpu/ops/pallas_scan.py
 // exactly: the catalog is viewed as [rows, 128] lanes, a tile is a run of
 // rows, and each (tile, lane) cell keeps its best row -- ties go to the
 // lowest row (the reference's _lane_argbest / _qblock_argbest). The final
@@ -51,6 +51,18 @@
 // and the product stay two correctly rounded operations (no fast-math,
 // no reciprocal), so the scores equal the reference's bit for bit while
 // the dots are exact in float32 (|dot| < 2^24, D <= 1040).
+//
+// ucfp_hamming_topk_cells replaces pallas_scan.hamming_topk_fused
+// (_hamming_kernel, pallas_scan.py:79), the single-query scan each shard of
+// the sharded Hamming path runs: one query, no validity mask, tiles of 256
+// rows x 128 lanes (pallas_scan.ROWS_PER_TILE, twice the batched kernel's
+// tile). Bound: device memory -- it reads each row's 4W bytes once and does
+// W popcounts per row, a quarter of the bytes' time at W = 2. Design: the
+// scores kernel's shape (one block per tile; 128 lanes x 8 row groups of 32
+// rows, so a warp reads 32 consecutive rows per step and a block keeps 1,024
+// loads in flight), the query in registers, a strict '<' inside a group and
+// the group winners merged in row order, so the first row of the minimum
+// wins as in _lane_argbest.
 //
 // Every entry point has a plain C interface (loaded with ctypes), launch
 // on the caller's stream, allocate nothing, and return cudaGetLastError().
@@ -270,6 +282,58 @@ void launch_hamming(const uint32_t* queries, int q, const uint32_t* db, const ui
   hamming_cells_kernel<W><<<grid, LANES, 0, stream>>>(queries, q, db, valid, tiles, dist, idx);
 }
 
+constexpr int HAM1_TILE_ROWS = 256;  // pallas_scan.ROWS_PER_TILE
+constexpr int HAM1_GROUPS = 8;       // row groups per block
+constexpr int HAM1_GROUP_ROWS = HAM1_TILE_ROWS / HAM1_GROUPS;
+
+template <int W>
+__global__ void __launch_bounds__(LANES * HAM1_GROUPS)
+hamming1_cells_kernel(const uint32_t* __restrict__ query, const uint32_t* __restrict__ db,
+                      int* __restrict__ dist_out, int* __restrict__ idx_out) {
+  const int lane = threadIdx.x;
+  const int group = threadIdx.y;
+  const int t = blockIdx.x;
+  uint32_t q[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) q[w] = __ldg(query + w);
+
+  const int r0 = group * HAM1_GROUP_ROWS;
+  int best = 0x7fffffff;
+  int best_r = r0;
+#pragma unroll 4
+  for (int r = 0; r < HAM1_GROUP_ROWS; ++r) {
+    const long long row = ((long long)t * HAM1_TILE_ROWS + r0 + r) * LANES + lane;
+    uint32_t rw[W];
+    load_row<W>(db + row * W, rw);
+    int d = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) d += __popc(q[w] ^ rw[w]);
+    if (d < best) {
+      best = d;
+      best_r = r0 + r;
+    }
+  }
+
+  __shared__ int s_val[HAM1_GROUPS][LANES];
+  __shared__ int s_row[HAM1_GROUPS][LANES];
+  s_val[group][lane] = best;
+  s_row[group][lane] = best_r;
+  __syncthreads();
+  if (group != 0) return;
+  // groups hold ascending row ranges: a strict comparison keeps the
+  // earliest group's (lowest) row on ties
+  for (int g = 1; g < HAM1_GROUPS; ++g) {
+    const int v = s_val[g][lane];
+    if (v < best) {
+      best = v;
+      best_r = s_row[g][lane];
+    }
+  }
+  const long long out = (long long)t * LANES + lane;
+  dist_out[out] = best;
+  idx_out[out] = (t * HAM1_TILE_ROWS + best_r) * LANES + lane;
+}
+
 }  // namespace
 
 extern "C" int ucfp_scores_cells(const void* scores, int is_bf16, int largest, int q,
@@ -316,6 +380,28 @@ extern "C" int ucfp_hamming_cells(const uint32_t* queries, int q, int w, const u
     UCFP_HAMMING_CASE(9) UCFP_HAMMING_CASE(10) UCFP_HAMMING_CASE(11) UCFP_HAMMING_CASE(12)
     UCFP_HAMMING_CASE(13) UCFP_HAMMING_CASE(14) UCFP_HAMMING_CASE(15) UCFP_HAMMING_CASE(16)
 #undef UCFP_HAMMING_CASE
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ucfp_hamming_topk_cells(const uint32_t* query, int w, const uint32_t* db,
+                                       long long c, int* dist, int* idx, void* stream) {
+  if (w < 1 || w > MAX_WORDS || c <= 0 || c % (HAM1_TILE_ROWS * LANES) != 0 ||
+      c > (1LL << 31))  // int32 row indices
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (int)(c / (HAM1_TILE_ROWS * LANES));
+  const dim3 block(LANES, HAM1_GROUPS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (w) {
+#define UCFP_HAMMING1_CASE(N) \
+  case N:                     \
+    hamming1_cells_kernel<N><<<tiles, block, 0, s>>>(query, db, dist, idx); \
+    break;
+    UCFP_HAMMING1_CASE(1) UCFP_HAMMING1_CASE(2) UCFP_HAMMING1_CASE(3) UCFP_HAMMING1_CASE(4)
+    UCFP_HAMMING1_CASE(5) UCFP_HAMMING1_CASE(6) UCFP_HAMMING1_CASE(7) UCFP_HAMMING1_CASE(8)
+    UCFP_HAMMING1_CASE(9) UCFP_HAMMING1_CASE(10) UCFP_HAMMING1_CASE(11) UCFP_HAMMING1_CASE(12)
+    UCFP_HAMMING1_CASE(13) UCFP_HAMMING1_CASE(14) UCFP_HAMMING1_CASE(15) UCFP_HAMMING1_CASE(16)
+#undef UCFP_HAMMING1_CASE
   }
   return (int)cudaGetLastError();
 }

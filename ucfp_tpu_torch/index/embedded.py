@@ -34,7 +34,20 @@ Query micro-batching (UCFP_QUERY_BATCH_MS > 0) coalesces concurrent
 plain knn() and knn_fingerprint() calls into one knn_batch /
 knn_fingerprint_batch dispatch per bucket, as the reference does.
 
-Not in this slice (later ports): sharding, LSH / BM25 / audio indexes,
+Sharded serving (the reference's mesh paths): with a mesh (the `mesh=`
+argument, or on a CUDA device the reference's rule: UCFP_SHARD=auto and at
+least two cards, UCFP_MESH_SHAPE=<s>x<d> for a 2-D mesh) every ANN cache is
+cut into equal row blocks, one per shard on the shard's device
+(parallel.sharded_knn.ShardedTensor; the packed int4/int2 columns into
+column blocks, the tiled sketch into tile-row blocks), each built from its
+own host rows; a row patch goes to the row's shard. Queries run the
+reference's sharded dispatch (parallel.sharded_knn: per-shard top-k and a
+merge; the cost-model gates on per-shard capacities and pools) and are
+exact except where a per-shard prefilter pool does not cover its shard.
+A micro-batched flush goes through the sharded knn_batch. The CPU never
+shards unless a mesh is passed.
+
+Not in this slice (later ports): LSH / BM25 / audio indexes,
 and autocompaction. Records that need one of those indexes — text (BM25) or
 the LSH, audio-landmark and haitsma algorithms — are refused on write,
 and a data directory that holds them raises UnsupportedError on open
@@ -67,6 +80,9 @@ from ..core import (
 from ..device import resolve_device
 from ..ops import fused_scan
 from ..ops import knn as knn_ops
+from ..parallel import sharded_knn
+from ..parallel.mesh import Mesh, serving_mesh
+from ..parallel.sharded_knn import ShardedTensor
 from .backend import IndexBackend
 
 LSH_ALGORITHM = "minhash-lsh-h128"
@@ -257,19 +273,33 @@ def _HamCache(words: int) -> _RowCache:  # noqa: N802 - constructor alias
 
 
 class EmbeddedBackend(IndexBackend):
-    """Single-directory embedded index on one torch device.
+    """Single-directory embedded index on one torch device, or row-sharded
+    over a mesh of them.
 
     wal_engine: "auto" prefers the native C++ log and falls back to the
     pure-Python JSON log; an existing file's format always wins.
     device: None = the CUDA card (raises when there is none); "cpu" runs
     the plain PyTorch paths on the host.
+    mesh: None = the reference's rule on a CUDA device
+    (parallel.mesh.serving_mesh: UCFP_SHARD, UCFP_MESH_SHAPE, at least two
+    cards), no sharding on the CPU; a parallel.mesh.Mesh shards over its
+    devices whatever the environment says (entries may repeat: [cuda:0] *
+    8 is 8 shards on one card, [cpu] * 8 the tests' mesh).
     """
 
     def __init__(self, data_dir: str, wal_engine: str = "auto", device=None,
-                 knn_quant: str | None = None):
+                 knn_quant: str | None = None, mesh: Mesh | None = None):
         from .wal import GroupCommitWal, JsonWal, open_wal
 
         self.device = resolve_device(device)
+        # sharded serving: with a mesh every ANN cache is cut into row
+        # blocks, one per shard, and every query runs per shard plus a merge
+        # (parallel.sharded_knn), as the reference does on more than one
+        # device. Capacities are powers of two, so rows split evenly.
+        if mesh is None and self.device.type == "cuda":
+            mesh = serving_mesh()
+        self._mesh = mesh
+        self._mesh_axes: tuple = mesh.axis_names if mesh is not None else ("d",)
         # "none" = exact f32 cosine; "int8" = per-row symmetric int8 rows
         # (a quarter of the f32 bytes; scores are cosines of the quantized
         # vectors); "int4" / "int2" / "sketch" = int8 plus a packed int4,
@@ -901,19 +931,54 @@ class EmbeddedBackend(IndexBackend):
 
     # -- device caches ------------------------------------------------------------
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _to_device(self, arr: np.ndarray, device=None) -> torch.Tensor:
         if arr.dtype == np.uint32:
             arr = arr.view(np.int32)  # u32 bit patterns, int32 storage
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device or self.device)
 
-    def _device_valid(self, cap: int, n: int) -> torch.Tensor:
-        # built on the device: rows below n are live
-        return torch.arange(cap, device=self.device) < n
+    def _n_shards(self) -> int:
+        return self._mesh.size if self._mesh is not None else 1
 
-    def _scatter_rows(self, m: torch.Tensor, ridx: list[int],
-                      vals: np.ndarray) -> torch.Tensor:
-        """Row patch IN PLACE (see module doc)."""
-        m[torch.as_tensor(ridx, device=self.device)] = self._to_device(vals)
+    def _blocks(self, cap: int) -> list:
+        """(device, first row, end row) of each shard of a cap-row cache, in
+        shard order: the whole cache on self.device without a mesh."""
+        if self._mesh is None:
+            return [(self.device, 0, cap)]
+        devs = list(self._mesh.devices.reshape(-1))
+        if cap % len(devs):
+            raise ValueError(f"capacity {cap} does not split over {len(devs)} shards")
+        rows = cap // len(devs)
+        return [(dev, s * rows, (s + 1) * rows) for s, dev in enumerate(devs)]
+
+    def _joined(self, blocks: list, dim: int = 0):
+        """One tensor per shard -> the cache tensor: that tensor without a
+        mesh, else a ShardedTensor split on `dim`."""
+        return blocks[0] if self._mesh is None else ShardedTensor(blocks, dim)
+
+    @staticmethod
+    def _block(t, s: int) -> torch.Tensor:
+        """Shard s of a cache tensor (the tensor itself without a mesh)."""
+        return t.shards[s] if isinstance(t, ShardedTensor) else t
+
+    def _put_matrix(self, arr: np.ndarray):
+        """Host rows (a matrix or a row vector, the reference's _put_matrix
+        and _put_rowvec) on the device, row-sharded under a mesh."""
+        return self._joined([self._to_device(arr[lo:hi], dev)
+                             for dev, lo, hi in self._blocks(len(arr))])
+
+    def _device_valid(self, cap: int, n: int):
+        # built on the device(s): rows below n are live
+        return self._joined([torch.arange(lo, hi, device=dev) < n
+                             for dev, lo, hi in self._blocks(cap)])
+
+    def _scatter_rows(self, m, ridx: list[int], vals: np.ndarray):
+        """Row patch IN PLACE (see module doc); under a mesh global row r
+        goes to its shard's block at r - the block's first row."""
+        for s, (dev, lo, hi) in enumerate(self._blocks(m.shape[0])):
+            mine = [j for j, r in enumerate(ridx) if lo <= r < hi]
+            if mine:
+                local = torch.as_tensor([ridx[j] - lo for j in mine], device=dev)
+                self._block(m, s)[local] = self._to_device(vals[mine], dev)
         return m
 
     #: rows per host quantization pass when the int8 cache is built: the
@@ -939,62 +1004,86 @@ class EmbeddedBackend(IndexBackend):
         cap, dim = cache.data.shape
         packed = ((self._int4_on() and dim % 2 == 0)
                   or (self._int2_on() and dim % 4 == 0))
-        pack_full, pack_rows, min_pool, den = (
-            (knn_ops.pack_int2_cols_chunked, knn_ops.pack_int2_cols,
-             knn_ops.INT2_MIN_POOL, 4) if self._int2_on() else
-            (knn_ops.pack_int4_cols_chunked, knn_ops.pack_int4_cols,
-             knn_ops.INT4_MIN_POOL, 2))
+        min_pool = knn_ops.INT2_MIN_POOL if self._int2_on() else knn_ops.INT4_MIN_POOL
+        blocks = self._blocks(cap)
         if cache.dirty or cache.device is None:
             cache.device = None  # the old copy can go before the new one lands
-            q8m = torch.zeros((cap, knn_ops.padded_dim(dim)), dtype=torch.int8,
-                              device=self.device)
-            row_norm = torch.empty(cap, dtype=torch.float32, device=self.device)
-            for lo in range(0, cap, self.INT8_BUILD_ROWS):
-                hi = min(cap, lo + self.INT8_BUILD_ROWS)
-                q8, rn = knn_ops.quantize_rows_int8(cache.data[lo:hi])
-                q8m[lo:hi, :dim] = torch.from_numpy(q8).to(self.device)
-                row_norm[lo:hi] = torch.from_numpy(rn).to(self.device)
-            parts = [q8m, row_norm]
-            if packed and cap > 2 * min_pool:
-                parts += pack_full(q8m[:, :dim])
-            elif packed:
-                # at or below 2 * MIN_POOL every k gives pool * 2 >= cap,
-                # so no query reads the packed columns: zero-width
-                # placeholders keep the layout (growth rebuilds in full)
-                parts += [torch.zeros((dim // den, 0), dtype=torch.int8, device=self.device),
-                          torch.zeros(0, dtype=torch.float32, device=self.device)]
-            if self._sketch_on():
-                parts.append(knn_ops.tile_sketch(knn_ops.build_sketch_chunked(
-                    q8m[:, :dim], self._sketch_planes(dim))))
+            # under a mesh each shard builds its parts from its own rows on
+            # its own device; a shard's packed columns are the column block
+            # of the whole pack (packing is per row), and its tiled sketch
+            # the tile-row block
+            per = [self._int8_block(cache.data[lo:hi], dim, dev, packed, cap > 2 * min_pool)
+                   for dev, lo, hi in blocks]
+            dims = [0, 0] + ([1, 0] if packed else []) + ([0] if self._sketch_on() else [])
+            parts = [self._joined([p[i] for p in per], d) for i, d in enumerate(dims)]
             cache.device = (*parts, self._device_valid(cap, cache.n))
             cache.dirty = False
             cache.pending = []
         elif cache.pending:
             rows = sorted(set(cache.pending))
-            q8, rn = knn_ops.quantize_rows_int8(cache.data[rows])
-            q8m, row_norm = cache.device[0], cache.device[1]
-            ridx = torch.as_tensor(rows, device=self.device)
-            q8d = torch.from_numpy(q8).to(self.device)
-            q8m[ridx, :dim] = q8d  # in place
-            row_norm[ridx] = torch.from_numpy(rn).to(self.device)
-            parts = [q8m, row_norm]
-            if packed:
-                packed_t, inv_n = cache.device[2], cache.device[3]
-                if packed_t.shape[1]:  # real columns: catalog row i is column i
-                    pk, inv = pack_rows(q8d)
-                    packed_t[:, ridx] = pk
-                    inv_n[ridx] = inv
-                parts += [packed_t, inv_n]
-            if self._sketch_on():
-                tiled = cache.device[2]
-                lanes = knn_ops.SKETCH_LANES
-                words = torch.arange(knn_ops.SKETCH_WORDS, device=self.device)
-                tiled[(ridx // lanes)[:, None], words[None, :], (ridx % lanes)[:, None]] = \
-                    knn_ops.sketch_rows_int8(q8d, self._sketch_planes(dim))
-                parts.append(tiled)
-            cache.device = (*parts, self._device_valid(cap, cache.n))
+            for s, (dev, lo, hi) in enumerate(blocks):
+                mine = [r for r in rows if lo <= r < hi]
+                if mine:
+                    self._int8_patch([self._block(t, s) for t in cache.device[:-1]],
+                                     cache.data[mine], [r - lo for r in mine], dim, dev,
+                                     packed)
+            cache.device = (*cache.device[:-1], self._device_valid(cap, cache.n))
             cache.pending = []
         return cache.device
+
+    def _int8_block(self, data: np.ndarray, dim: int, dev, packed: bool,
+                    real_packed: bool) -> list:
+        """One block's quantized parts on `dev`, built from its host rows:
+        q8m, row_norm, [packed_t, inv_n], [tiled sketch]."""
+        rows = data.shape[0]
+        q8m = torch.zeros((rows, knn_ops.padded_dim(dim)), dtype=torch.int8, device=dev)
+        row_norm = torch.empty(rows, dtype=torch.float32, device=dev)
+        for lo in range(0, rows, self.INT8_BUILD_ROWS):
+            hi = min(rows, lo + self.INT8_BUILD_ROWS)
+            q8, rn = knn_ops.quantize_rows_int8(data[lo:hi])
+            q8m[lo:hi, :dim] = torch.from_numpy(q8).to(dev)
+            row_norm[lo:hi] = torch.from_numpy(rn).to(dev)
+        parts = [q8m, row_norm]
+        if packed and real_packed:
+            pack_full = (knn_ops.pack_int2_cols_chunked if self._int2_on()
+                         else knn_ops.pack_int4_cols_chunked)
+            parts += pack_full(q8m[:, :dim])
+        elif packed:
+            # at or below 2 * MIN_POOL every k gives pool * 2 >= cap, so no
+            # query reads the packed columns: zero-width placeholders keep
+            # the layout (growth rebuilds in full)
+            den = 4 if self._int2_on() else 2
+            parts += [torch.zeros((dim // den, 0), dtype=torch.int8, device=dev),
+                      torch.zeros(0, dtype=torch.float32, device=dev)]
+        if self._sketch_on():
+            parts.append(knn_ops.tile_sketch(knn_ops.build_sketch_chunked(
+                q8m[:, :dim], self._sketch_planes(dim).to(dev))))
+        return parts
+
+    def _int8_patch(self, parts: list, data: np.ndarray, ridx_rows: list[int], dim: int,
+                    dev, packed: bool) -> None:
+        """Patch one block's parts IN PLACE for its touched rows (block-local
+        row numbers) from their host rows."""
+        q8, rn = knn_ops.quantize_rows_int8(data)
+        q8m, row_norm = parts[0], parts[1]
+        ridx = torch.as_tensor(ridx_rows, device=dev)
+        q8d = torch.from_numpy(q8).to(dev)
+        q8m[ridx, :dim] = q8d
+        row_norm[ridx] = torch.from_numpy(rn).to(dev)
+        if packed:
+            packed_t, inv_n = parts[2], parts[3]
+            if packed_t.shape[1]:  # real columns: catalog row i is column i
+                pack_rows = (knn_ops.pack_int2_cols if self._int2_on()
+                             else knn_ops.pack_int4_cols)
+                pk, inv = pack_rows(q8d)
+                packed_t[:, ridx] = pk
+                inv_n[ridx] = inv
+        if self._sketch_on():
+            tiled = parts[2]
+            lanes = knn_ops.SKETCH_LANES
+            words = torch.arange(knn_ops.SKETCH_WORDS, device=dev)
+            tiled[(ridx // lanes)[:, None], words[None, :], (ridx % lanes)[:, None]] = \
+                knn_ops.sketch_rows_int8(q8d, self._sketch_planes(dim).to(dev))
 
     def _int4_on(self) -> bool:
         return self.knn_quant == "int4"
@@ -1013,27 +1102,44 @@ class EmbeddedBackend(IndexBackend):
             self._planes[dim] = p
         return p
 
+    # The cost-model gates run on per-shard values (capacity and pool per
+    # shard), mirroring what each shard executes; without a mesh they are
+    # the whole catalog's.
+
+    def _cap_l(self, cap: int) -> int:
+        return max(1, cap // self._n_shards())
+
     def _int2_worth_it(self, cap: int, dim: int, k: int, fused: bool = True) -> bool:
         """The reference's gate for the single-query int2 prefilter."""
-        return knn_ops.int2_beats_exact(cap, dim, knn_ops.int2_pool(cap, k), fused=fused)
+        cap_l = self._cap_l(cap)
+        return knn_ops.int2_beats_exact(cap_l, dim, knn_ops.int2_pool(cap_l, k), fused=fused)
 
     def _int2_batch_worth_it(self, cap: int, dim: int, k: int, q: int) -> bool:
         """The reference's gate for the batched int2 prefilter: a real
         packed cache and a cost model that prefers it for q queries."""
         if cap <= 2 * knn_ops.INT2_MIN_POOL:
             return False  # zero-width placeholder packed cache
-        return knn_ops.int2_batch_beats_exact(cap, dim, q, knn_ops.int2_batch_pool(cap, k))
+        cap_l = self._cap_l(cap)
+        return knn_ops.int2_batch_beats_exact(cap_l, dim, q,
+                                              knn_ops.int2_batch_pool(cap_l, k))
 
     def _sketch_worth_it(self, cap: int, dim: int, k: int, pool_frac) -> bool:
         """The reference's gate for the sketch prefilter: the cost model
-        must prefer it to the exact int8 scan at this (capacity, pool)."""
-        return knn_ops.sketch_beats_exact(cap, dim, knn_ops.sketch_pool(cap, k, pool_frac))
+        must prefer it to the exact int8 scan at this (capacity, pool);
+        under a mesh at each shard's capacity and pool share (the floor
+        of sharded_knn.sharded_cosine_sketch_topk)."""
+        cand = knn_ops.sketch_pool(cap, k, pool_frac)
+        cap_l = self._cap_l(cap)
+        if self._n_shards() > 1:
+            cand = min(cap_l, max(512, 16 * k, -(-cand * cap_l // cap)))
+        return knn_ops.sketch_beats_exact(cap_l, dim, cand)
 
     def _int4_worth_it(self, cap: int, dim: int, k: int, fused: bool = True) -> bool:
         """The reference's gate for the single-query int4 prefilter: the
         cost model must prefer it to the exact int8 scan at this capacity
         (fused=False models the filtered form)."""
-        return knn_ops.int4_beats_exact(cap, dim, knn_ops.int4_pool(cap, k), fused=fused)
+        cap_l = self._cap_l(cap)
+        return knn_ops.int4_beats_exact(cap_l, dim, knn_ops.int4_pool(cap_l, k), fused=fused)
 
     def _int4_batch_worth_it(self, cap: int, dim: int, k: int, q: int) -> bool:
         """The reference's gate for the batched int4 prefilter: a real
@@ -1042,7 +1148,9 @@ class EmbeddedBackend(IndexBackend):
         capacity) and a cost model that prefers it for q queries."""
         if cap <= 2 * knn_ops.INT4_MIN_POOL:
             return False  # zero-width placeholder packed cache
-        return knn_ops.int4_batch_beats_exact(cap, dim, q, knn_ops.int4_batch_pool(cap, k))
+        cap_l = self._cap_l(cap)
+        return knn_ops.int4_batch_beats_exact(cap_l, dim, q,
+                                              knn_ops.int4_batch_pool(cap_l, k))
 
     def _device_rows(self, cache: _RowCache) -> tuple:
         """(matrix, valid) on the device — the reference's _device_vec
@@ -1051,7 +1159,7 @@ class EmbeddedBackend(IndexBackend):
         the last sync."""
         cap = cache.data.shape[0]
         if cache.dirty or cache.device is None:
-            cache.device = (self._to_device(cache.data),
+            cache.device = (self._put_matrix(cache.data),
                             self._device_valid(cap, cache.n))
             cache.dirty = False
             cache.pending = []
@@ -1087,7 +1195,8 @@ class EmbeddedBackend(IndexBackend):
         path); a single query that micro-batching may coalesce is judged
         at the worst case, a full 64-query flush; then the single-query
         packed tiers. Every rule gates on min(k, n), as the dispatch
-        does."""
+        does; the packed tiers' pools are judged per shard (each shard
+        keeps its own), and the sharded int8 and f32 scans are exact."""
         if exact:
             return False
         cache = self._vec.get((tenant_id, dim))
@@ -1095,37 +1204,50 @@ class EmbeddedBackend(IndexBackend):
             return False
         kk = min(k, cache.n)
         cap = cache.data.shape[0]
+        cap_l = self._cap_l(cap)
         if (self._sketch_on() and not batch
                 and self._sketch_worth_it(cap, dim, kk, pool_frac)):
+            # the whole catalog's pool, conservative under a mesh as in
+            # the reference
             return knn_ops.sketch_pool(cap, kk, pool_frac) * 2 < cap
         tier = self._packed_tier()
         if tier is not None:
             worth, batch_worth, pool, batch_pool = tier[:4]
             if batch and not filtered and batch_worth(cap, dim, kk, batch_q):
-                return batch_pool(cap, kk) * 2 < cap
+                return batch_pool(cap_l, kk) * 2 < cap_l
             if (not batch and self._qbatch_ms > 0 and pool_frac is None
-                    and batch_worth(cap, dim, kk, 64) and batch_pool(cap, kk) * 2 < cap):
+                    and batch_worth(cap, dim, kk, 64) and batch_pool(cap_l, kk) * 2 < cap_l):
                 return True
             if not batch and worth(cap, dim, kk):
-                return pool(cap, kk) * 2 < cap
+                return pool(cap_l, kk) * 2 < cap_l
+        if self._mesh is not None:
+            return False
         return self._fused_pool_ok(cap, cache.n, kk)
 
     def _packed_tier(self):
         """(single gate, batch gate, pool, batch pool, single pipeline,
-        batched pipeline) of the packed tier this backend serves, or None."""
+        batched pipeline, their sharded forms) of the packed tier this
+        backend serves, or None."""
         if self._int4_on():
             return (self._int4_worth_it, self._int4_batch_worth_it,
                     knn_ops.int4_pool, knn_ops.int4_batch_pool,
-                    knn_ops.cosine_int4_topk, knn_ops.cosine_int4_topk_batched)
+                    knn_ops.cosine_int4_topk, knn_ops.cosine_int4_topk_batched,
+                    sharded_knn.sharded_cosine_int4_topk,
+                    sharded_knn.sharded_cosine_int4_batch_topk)
         if self._int2_on():
             return (self._int2_worth_it, self._int2_batch_worth_it,
                     knn_ops.int2_pool, knn_ops.int2_batch_pool,
-                    knn_ops.cosine_int2_topk, knn_ops.cosine_int2_topk_batched)
+                    knn_ops.cosine_int2_topk, knn_ops.cosine_int2_topk_batched,
+                    sharded_knn.sharded_cosine_int2_topk,
+                    sharded_knn.sharded_cosine_int2_batch_topk)
         return None
 
     def fingerprint_is_approximate(self, tenant_id: int, algorithm: str,
                                    k: int) -> bool:
-        """Same marker for the fused Hamming serving path."""
+        """Same marker for the fused Hamming serving path (the sharded
+        Hamming scan is exact)."""
+        if self._mesh is not None:
+            return False
         cache = self._ham.get((tenant_id, algorithm))
         if cache is None or cache.n == 0 or cache.data is None:
             return False
@@ -1156,7 +1278,7 @@ class EmbeddedBackend(IndexBackend):
         the last device tensor."""
         dev = self._device_int8(cache) if quant else self._device_rows(cache)
         if flt_mask is not True:
-            dev = (*dev[:-1], dev[-1] & torch.as_tensor(flt_mask, device=self.device))
+            dev = (*dev[:-1], dev[-1] & self._put_matrix(flt_mask))
         rids_copy = list(cache.rids) if attempt == last else None
         return dev, cache.gen, rids_copy, cache.n
 
@@ -1298,7 +1420,7 @@ class EmbeddedBackend(IndexBackend):
             return s1[None, :], i1[None, :]
         tier = None if exact else self._packed_tier()
         if tier is not None:
-            worth, batch_worth, pool, pool_b, pipe, pipe_b = tier
+            worth, batch_worth, pool, pool_b, pipe, pipe_b = tier[:6]
             if single and worth(cap, dim, kk, fused=unfiltered):
                 q8m, row_norm, packed_t, inv_n, valid = dev
                 s1, i1 = pipe(torch.from_numpy(qm[0]).to(self.device), q8m, row_norm,
@@ -1311,6 +1433,43 @@ class EmbeddedBackend(IndexBackend):
         q8m, row_norm, valid = dev[0], dev[1], dev[-1]
         topk = self._int8_single_topk if single else self._int8_batch_topk
         return topk(qm[0] if single else qm, q8m, row_norm, valid, kk, n, exact, n_prefix)
+
+    def _sharded_topk(self, qm: np.ndarray, dev: tuple, kk: int, n: int, exact: bool,
+                      unfiltered: bool, single: bool, dispatch_q: int, quant: bool,
+                      pool_frac=None):
+        """The reference's sharded dispatch, in its order (one query:
+        embedded.py:2244-2306; a batch: 2513-2550): a single query takes the
+        sharded sketch, int4 or int2 prefilter where its per-shard gate
+        passes (filtered too), a batch the sharded int4 or int2 batch
+        prefilter (unfiltered only); everything else the exact sharded int8
+        scan (quantized tiers) or the sharded f32 cosine."""
+        mesh, axes = self._mesh, self._mesh_axes
+        cap, dim = dev[0].shape[0], qm.shape[1]
+        qd = torch.from_numpy(qm).to(self.device)
+        if quant and not exact:
+            if single and self._sketch_on() and self._sketch_worth_it(cap, dim, kk, pool_frac):
+                q8m, row_norm, sketch, valid = dev
+                s1, i1 = sharded_knn.sharded_cosine_sketch_topk(
+                    qd[0], self._sketch_planes(dim), q8m, row_norm, sketch, valid, kk,
+                    knn_ops.sketch_pool(cap, kk, pool_frac), mesh, axes)
+                return s1[None, :], i1[None, :]
+            tier = self._packed_tier()
+            if tier is not None:
+                worth, batch_worth = tier[:2]
+                sharded, sharded_b = tier[6:]
+                if single and worth(cap, dim, kk, fused=unfiltered):
+                    q8m, row_norm, packed_t, inv_n, valid = dev
+                    s1, i1 = sharded(qd[0], q8m, row_norm, packed_t, inv_n, valid, kk, mesh,
+                                     axes, n_valid=n if unfiltered else None)
+                    return s1[None, :], i1[None, :]
+                if not single and unfiltered and batch_worth(cap, dim, kk, dispatch_q):
+                    q8m, row_norm, packed_t, inv_n, _valid = dev
+                    return sharded_b(qd, q8m, row_norm, packed_t, inv_n, n, kk, mesh, axes)
+        if quant:
+            return sharded_knn.sharded_cosine_int8_batch_topk(
+                qd, dev[0], dev[1], dev[-1], kk, mesh, axes)
+        matrix, valid = dev
+        return sharded_knn.sharded_cosine_topk(qd, matrix, valid, kk, mesh, axes)
 
     async def _knn_rows(self, cache: _RowCache, qm: np.ndarray, k: int,
                         filter: Optional[dict], exact: bool,
@@ -1329,7 +1488,10 @@ class EmbeddedBackend(IndexBackend):
                 dev, gen_snap, rids_copy, n_snap = self._snapshot(
                     cache, _attempt, _last, flt_mask, quant=quant)
             kk = min(k, n_snap)
-            if quant:
+            if self._mesh is not None:
+                scores, idx = self._sharded_topk(qm, dev, kk, n_snap, exact, flt_mask is True,
+                                                 single, dispatch_q, quant, pool_frac)
+            elif quant:
                 scores, idx = self._quant_topk(qm, dev, kk, n_snap, exact,
                                                flt_mask is True, single, dispatch_q,
                                                pool_frac)
@@ -1472,7 +1634,11 @@ class EmbeddedBackend(IndexBackend):
                     cache, _attempt, _last)
             kk = min(k, n_snap)
             qd = self._to_device(qm)
-            if (self._fused_pool_ok(matrix.shape[0], n_snap, kk)
+            if self._mesh is not None:
+                # the reference's sharded Hamming scan: exact, masked
+                dist, idx = sharded_knn.sharded_hamming_topk(
+                    qd, matrix, valid, kk, self._mesh, self._mesh_axes)
+            elif (self._fused_pool_ok(matrix.shape[0], n_snap, kk)
                     and cache.width <= fused_scan.MAX_FUSED_HAMMING_WORDS):
                 dist, idx = fused_scan.hamming_topk_fused_batched(
                     qd, matrix, valid, kk)
@@ -1526,8 +1692,13 @@ class EmbeddedBackend(IndexBackend):
                 (matrix, valid), gen_snap, rids_copy, n_snap = self._snapshot(
                     cache, _attempt, _last)
             kk = min(k, n_snap)
-            scores, idx = ih.multihash_weighted_topk(
-                self._to_device(qm), matrix, valid, params, kk)
+            if self._mesh is not None:
+                scores, idx = sharded_knn.sharded_multihash_topk(
+                    self._to_device(qm), matrix, valid, params, kk, self._mesh,
+                    self._mesh_axes)
+            else:
+                scores, idx = ih.multihash_weighted_topk(
+                    self._to_device(qm), matrix, valid, params, kk)
             scores = scores.cpu().numpy()
             idx = idx.cpu().numpy()
             keep = np.isfinite(scores)

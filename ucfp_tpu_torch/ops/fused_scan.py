@@ -18,7 +18,10 @@ Kernels (CUDA C++ for sm_90a, csrc/fused_scan.cu):
   * dots_norm_topk_fused_batched — int32 dots -> cosine (/|row| * 1/|q|)
     -> prefix validity -> per-cell argbest, tiles of 256 rows x 128
     lanes, QSEL queries per block so the row norms are read once per
-    query block; dots_norm_topk_fused is its single-query [C] form.
+    query block; dots_norm_topk_fused is its single-query [C] form;
+  * hamming_topk_fused — one query's XOR-popcount + per-cell argmin with
+    no validity mask, tiles of ROWS_PER_TILE=256 rows x 128 lanes (the
+    per-shard scan of parallel.sharded_knn.sharded_hamming_topk_fused).
 
 The final selection runs over the flat candidate array in the order
 t*128 + lane (the reference's moveaxis/reshape order, NOT global row
@@ -49,7 +52,7 @@ NEG_INF = float("-inf")
 #: kernel launches since the last reset_launch_counts(), by wrapper name
 LAUNCHES = {"scores_topk_fused_batched": 0, "hamming_topk_fused_batched": 0,
             "scores_topk_fused": 0, "dots_norm_topk_fused": 0,
-            "dots_norm_topk_fused_batched": 0}
+            "dots_norm_topk_fused_batched": 0, "hamming_topk_fused": 0}
 _count_lock = threading.Lock()
 
 
@@ -82,6 +85,8 @@ def _kernels():
         lib.ucfp_hamming_cells.argtypes = [p, i, i, p, p, ll, p, p, p]
         lib.ucfp_dots_norm_cells.restype = i
         lib.ucfp_dots_norm_cells.argtypes = [p, i, ll, p, ll, p, p, p, p]
+        lib.ucfp_hamming_topk_cells.restype = i
+        lib.ucfp_hamming_topk_cells.argtypes = [p, i, p, ll, p, p, p]
         _lib = lib
     return _lib
 
@@ -193,6 +198,38 @@ def _hamming_cells_cuda(queries: torch.Tensor, db: torch.Tensor,
     )
     _check(rc, "hamming_topk_fused_batched")
     _count("hamming_topk_fused_batched")
+    return dist, gidx
+
+
+def _hamming1_cells_plain(query: torch.Tensor, db: torch.Tensor):
+    """_hamming_kernel literally: XOR-popcount over the words (no mask),
+    then the scores cells' rule on the distances: min per (256-row tile,
+    lane) cell and the smallest row among the hits."""
+    d = torch.zeros(db.shape[0], dtype=torch.int64, device=db.device)
+    for wi in range(db.shape[1]):
+        d += _popcount32(torch.bitwise_xor(query[wi], db[:, wi]))
+    # distances <= 512 compare exactly as float32 inside the cells rule
+    return _scores_cells_plain(d.to(torch.int32)[None], largest=False)
+
+
+def _hamming1_cells_cuda(query: torch.Tensor, db: torch.Tensor):
+    c, w = db.shape
+    for name, t in (("query", query), ("db", db)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != db.device:
+            raise ValueError(f"{name} must be on {db.device}")
+    if db.data_ptr() % 16:
+        raise ValueError("db must be 16-byte aligned (vector row loads)")
+    tiles = c // (ROWS_PER_TILE * LANES)
+    dist = torch.empty((1, tiles * LANES), dtype=torch.int32, device=db.device)
+    gidx = torch.empty((1, tiles * LANES), dtype=torch.int32, device=db.device)
+    rc = _kernels().ucfp_hamming_topk_cells(
+        query.data_ptr(), w, db.data_ptr(), c, dist.data_ptr(), gidx.data_ptr(),
+        _stream_ptr(db),
+    )
+    _check(rc, "hamming_topk_fused")
+    _count("hamming_topk_fused")
     return dist, gidx
 
 
@@ -325,6 +362,42 @@ def hamming_topk_fused_batched_plain(queries: torch.Tensor, db: torch.Tensor,
     _check_hamming(queries, db, valid)
     dist, gidx = _hamming_cells_plain(queries, db, valid)
     return _select(dist, gidx, k, largest=False)
+
+
+def _check_hamming1(query: torch.Tensor, db: torch.Tensor) -> None:
+    if query.dim() != 1 or db.dim() != 2 or query.shape[0] != db.shape[1]:
+        raise ValueError(
+            f"query [W] and db [C, W] must share W, got {tuple(query.shape)} "
+            f"and {tuple(db.shape)}"
+        )
+    if query.dtype != torch.int32 or db.dtype != torch.int32:
+        raise ValueError("query and db hold u32 bit patterns as int32")
+    if db.shape[1] > MAX_FUSED_HAMMING_WORDS:
+        raise ValueError(
+            f"fused Hamming scan takes at most {MAX_FUSED_HAMMING_WORDS} "
+            f"words, got {db.shape[1]}"
+        )
+    _check_tiles("hamming_topk_fused", db.shape[0])
+
+
+def hamming_topk_fused(query: torch.Tensor, db: torch.Tensor, k: int):
+    """query [W] int32 (u32 bits), db [C, W] int32, C % 32768 == 0, W <= 16
+    -> ([k] int32 distances, [k] int32 catalog indices), smallest first.
+    No validity mask: every row is a candidate (callers keep db dense)."""
+    _check_hamming1(query, db)
+    if db.device.type == "cpu":
+        dist, gidx = _hamming1_cells_plain(query, db)
+    else:
+        dist, gidx = _hamming1_cells_cuda(query, db)
+    d, i = _select(dist, gidx, k, largest=False)
+    return d[0], i[0]
+
+
+def hamming_topk_fused_plain(query: torch.Tensor, db: torch.Tensor, k: int):
+    """Plain PyTorch version of hamming_topk_fused on any device."""
+    _check_hamming1(query, db)
+    d, i = _select(*_hamming1_cells_plain(query, db), k, largest=False)
+    return d[0], i[0]
 
 
 def _check_scores_1d(scores: torch.Tensor) -> None:

@@ -14,7 +14,9 @@ def main() -> None:
     p.add_argument("--keys-file", default=None, help="multi-tenant keys file")
     p.add_argument("--data-dir", default=None, help="index directory")
     p.add_argument("--device", default="cuda",
-                   help="torch device for the index and the hashes (default cuda)")
+                   help="torch device for the index and the hashes (default cuda; "
+                        "with two or more cards the index shards over them unless "
+                        "UCFP_SHARD=off; cpu never shards)")
     args = p.parse_args()
     bind = args.bind or os.environ.get("UCFP_BIND", "127.0.0.1:8080")
     state = state_from_env(data_dir=args.data_dir, token=args.token,

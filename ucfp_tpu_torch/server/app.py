@@ -92,7 +92,10 @@ def state_from_env(
     keys_file: Optional[str] = None,
     device=None,
 ) -> ServerState:
-    """UCFP_KEYS_FILE > UCFP_TOKEN, else refuse to start."""
+    """UCFP_KEYS_FILE > UCFP_TOKEN, else refuse to start. The index shards
+    as the reference does on a CUDA device with at least two cards
+    (UCFP_SHARD, UCFP_MESH_SHAPE; EmbeddedBackend's mesh rule); a CPU
+    device never shards."""
     data_dir = data_dir or os.environ.get("UCFP_DATA_DIR", "./ucfp-data")
     keys_file = keys_file or os.environ.get("UCFP_KEYS_FILE")
     token = token or os.environ.get("UCFP_TOKEN")
@@ -128,7 +131,7 @@ async def run(bind: str, state: ServerState) -> None:
     drain_secs = float(os.environ.get("UCFP_DRAIN_SECS", "10"))
     srv = await server.serve(host, int(port))
     logger().info("serving", front="asyncio", port=int(port),
-                  device=str(state.index.device))
+                  device=str(state.index.device), shards=state.index._n_shards())
     serve_task = asyncio.create_task(srv.serve_forever())
     await stop.wait()
     logger().info("draining", deadline_s=drain_secs)
