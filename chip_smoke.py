@@ -23,7 +23,12 @@ each:
                   2^23, and the int2 pack and the sketch build on the card
                   equal to the same steps on the CPU; the single-query
                   Hamming scan (#6) bit-equal at 2^20 rows (a shard) and
-                  2^23, W = 2 and 16, and on tie-heavy catalogs
+                  2^23, W = 2 and 16, and on tie-heavy catalogs; the two
+                  int8-cosine scans (#7 at the bench's 9,994,240 x 64 and
+                  at 2^22 x 64; #8 at D = 64 over 9,994,240 rows, D = 32
+                  and 128, and a line count that tiles by 800) bit-equal,
+                  cells and top-k, with tie-heavy catalogs and an all-zero
+                  query, and their errors raised
   4. conformance  the image hashes computed on the card against
                   tests/goldens/conformance.json
   5. served       the port's EmbeddedBackend on the card, bulk-loaded with
@@ -75,15 +80,20 @@ each:
                   loopback HTTP: fingerprint_hex, fingerprints_hex x32,
                   vector, vectors x32, a filtered vector, the exact tier, an
                   upsert that a query finds, a delete
+ 12. bench        the port's bench entry point (ucfp_tpu_torch.bench) in
+                  this process: the phash headline and the 10M x 64 query
+                  keys (exact and fused Hamming; exact, hybrid, mxu and
+                  fused int8 cosine), each a finite positive number, with
+                  #4, #6, #7 and #8 launched and the last line parsed
 
 In phases 5-11 every served answer is checked against the plain path on
 the same device tensors (or, in phases 7 and 8, the micro-batched answer
 against the unbatched one), and the launch count of every kernel that
 the phase's path runs must rise between a reset just before the phase's
-requests and a read just after. Then one JSON line with every kernel's
-numbers (launches summed over phases 5-11), and last the line
-{"ok": true, "device": {...}}.
---phases picks a subset (default: all eleven).
+requests and a read just after (in phase 12, around the bench's run).
+Then one JSON line with every kernel's numbers (launches summed over
+phases 5-12), and last the line {"ok": true, "device": {...}}.
+--phases picks a subset (default: all twelve).
 """
 
 import argparse
@@ -163,6 +173,14 @@ SHARD_HAMMING_ROWS = 1 << 23
 SHARD_VEC_ROWS = 1 << 22
 SHARD_SERVED_ROWS = 1 << 20
 SHARD_RUNS = 10  # CUDA-event samples per phase-11 timing
+# #7 and #8 at the bench's 10M x 64 shape: 10M rows cut to whole 32,768-row
+# tiles (bench.py:377-381; ucfp_tpu_torch.bench runs them there)
+BENCH_X64_ROWS = (10_000_000 // (1 << 15)) * (1 << 15)
+# phase 3's (rows, width, tie-heavy) cases of #7 and #8; #8's 2,000,000 rows
+# of 64 are 1,000,000 lines, which _pick_rpt tiles by 800
+COSINE_I8_CASES = ((BENCH_X64_ROWS, 64, False), (1 << 22, 64, False), (1 << 22, 64, True))
+COSINE_I8_MXU_CASES = ((BENCH_X64_ROWS, 64, False), (1 << 22, 32, False),
+                       (1 << 22, 128, False), (2_000_000, 64, False), (1 << 22, 64, True))
 
 PHASH = "imgfprint-phash-v1"
 MULTI = "imgfprint-multi-v1"
@@ -390,9 +408,12 @@ def phase_kernels(torch, dev, card: dict) -> dict:
     for c in SKETCH_KERNEL_ROWS:
         _kernels_sketch(torch, dev, card, g, c, results)
     results["hamming1"] = []
+    # and at the bench's fused Hamming key, 9,994,240 x 64-bit (610 tiles)
     for c, w, ties in ((1 << 20, 2, False), (1 << 23, 2, False), (1 << 20, 16, False),
-                       (1 << 23, 16, False), (1 << 20, 2, True), (1 << 23, 16, True)):
+                       (1 << 23, 16, False), (1 << 20, 2, True), (1 << 23, 16, True),
+                       (BENCH_X64_ROWS, 2, False)):
         _kernels_hamming1(torch, dev, card, g, k, c, w, ties, results)
+    _kernels_cosine_int8(torch, dev, card, g, results)
     for name, rows in results.items():
         say(f"kernels/{name}: " + json.dumps(rows))
     return results
@@ -982,6 +1003,137 @@ def _kernels_hamming1(torch, dev, card: dict, g, k: int, c: int, w: int, ties: b
     })
     del db
     torch.cuda.empty_cache()
+
+
+def _kernels_cosine_int8(torch, dev, card: dict, g, results: dict) -> None:
+    """Kernels #7 (cosine_int8_topk_fused) and #8 (cosine_int8_topk_mxu)
+    against their plain versions (whose dots come from ops.knn.int8_dots),
+    cells and top-k (k = 10 and 16) bit-equal: #7 at the bench's 9,994,240
+    x 64 and at 2^22 x 64, with the hybrid (#4 on the same dots) held at
+    the bench's shape too; #8 at D = 64 over 9,994,240 rows (4,997,120
+    lines, rpt 1024), D = 32 and 128 at 2^22 rows, and 1,000,000 lines of
+    D = 64 (rpt 800); each on a random catalog with one row copied inside
+    its cell and into other cells, on a tie-heavy catalog of four distinct
+    rows, and under an all-zero query (every score ties). Then the errors:
+    #7's C % 16,384 != 0 and #8's k above the candidate pool raise."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+    from ucfp_tpu_torch.ops import knn
+
+    def catalog(c, d, ties):
+        if ties:
+            base = torch.randint(-128, 128, (4, d), generator=g, device=dev,
+                                 dtype=torch.int8)
+            db = base[torch.randint(0, 4, (c,), generator=g, device=dev)].contiguous()
+        else:
+            db = torch.randint(-128, 128, (c, d), generator=g, device=dev,
+                               dtype=torch.int8)
+            db[640 + 3::128 * 7][:9] = db[3]  # row 3 again in its lane, later tiles
+            db[200:260] = db[7]  # row 7 in neighbouring lanes and cells
+            db[c - 64:] = db[7]  # ...and in the last tile
+            db[11] = 0  # a zero row: its norm floors to 1e-9
+        rn = torch.cat([knn.int8_norms(db[lo:lo + (1 << 22)])
+                        for lo in range(0, c, 1 << 22)])
+        return db, rn
+
+    def queries(db):
+        return (("row7", db[7].clone()), ("zero", torch.zeros_like(db[7])))
+
+    def hold(name, cells_cuda, cells_plain, topk, topk_plain, db, rn, q, ks):
+        cells_k = cells_cuda()
+        torch.cuda.synchronize()
+        cells_p = cells_plain()
+        check(_same_bits(torch, cells_k[0], cells_p[0])
+              and torch.equal(cells_k[1], cells_p[1]), f"{name} cells bit-equal")
+        for k in ks:
+            vk, ik = topk(q, db, rn, k)
+            torch.cuda.synchronize()
+            vp, ip = topk_plain(q, db, rn, k)
+            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                  f"{name} top-{k} bit-equal")
+        return _max_abs(torch, vk, vp)
+
+    results.update(cosine_i8=[], cosine_i8_mxu=[])
+    k = 10
+    one = torch.ones(1, device=dev)  # the hybrid's 1/|q|
+    for c, d, ties in COSINE_I8_CASES:
+        db, rn = catalog(c, d, ties)
+        err = 0.0
+        for qname, q in queries(db):
+            err = max(err, hold(
+                f"cosine_int8_topk_fused c={c} d={d} ties={ties} q={qname}",
+                lambda: fs._cosine_i8_cells_cuda(q, db, rn),
+                lambda: fs._cosine_i8_cells_plain(q, db, rn),
+                fs.cosine_int8_topk_fused, fs.cosine_int8_topk_fused_plain, db, rn, q,
+                (10, 16)))
+            if c == BENCH_X64_ROWS:
+                # the bench's hybrid key runs #4 on these dots (305 tiles)
+                dots = fs._row_dots(q, db)
+                hold(f"cosine_int8_topk_hybrid (#4) c={c} d={d} q={qname}",
+                     lambda: fs._dots_norm_cells_cuda(dots[None], rn, c, one,
+                                                      "dots_norm_topk_fused"),
+                     lambda: fs._dots_norm_cells_plain(dots[None], rn, c, one),
+                     fs.cosine_int8_topk_hybrid,
+                     lambda q, db, rn, k: fs.dots_norm_topk_fused_plain(dots, rn, c, 1.0, k),
+                     db, rn, q, (10, 16))
+                del dots
+        q = db[7].clone()
+        # rows and norms read once, the query, the k best written; per row
+        # D/4 __dp4a and one compare (ALU), one division (float32)
+        b, by = bound_ms(card, c * d + c * 4 + d + k * 8, alu_ops=c * (d // 4 + 1),
+                         f32_ops=c)
+        results["cosine_i8"].append({
+            "c": c, "d": d, "ties": ties, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: fs.cosine_int8_topk_fused(q, db, rn, k)),
+            "cells_ms": time_ms(torch, lambda: fs._cosine_i8_cells_cuda(q, db, rn)),
+            "plain_ms": time_ms(torch, lambda: fs.cosine_int8_topk_fused_plain(q, db, rn, k)),
+            "library_ms": time_ms(torch, lambda: fs.cosine_int8_topk_hybrid(q, db, rn, k)),
+            "bound_ms": b, "bound_by": by,
+        })
+        if not ties and c != BENCH_X64_ROWS:
+            try:
+                fs.cosine_int8_topk_fused(q, db[:c - 128], rn[:c - 128], k)
+                raised = False
+            except ValueError:
+                raised = True
+            check(raised, "cosine_int8_topk_fused raises on C % 16384 != 0")
+        del db, rn
+        torch.cuda.empty_cache()
+
+    for c, d, ties in COSINE_I8_MXU_CASES:
+        db, rn = catalog(c, d, ties)
+        per, lines, rpt = fs._mxu_layout(c, d)
+        pool = lines // rpt * fs.SUB * per
+        err = 0.0
+        for qname, q in queries(db):
+            err = max(err, hold(
+                f"cosine_int8_topk_mxu c={c} d={d} rpt={rpt} ties={ties} q={qname}",
+                lambda: fs._cosine_i8_mxu_cells_cuda(q, db),
+                lambda: fs._cosine_i8_mxu_cells_plain(q, db),
+                fs.cosine_int8_topk_mxu, fs.cosine_int8_topk_mxu_plain, db, rn, q, (10, 16)))
+        q = db[7].clone()
+        # the catalog read once, the candidates' norms gathered, the query,
+        # the k best written; per row D/4 __dp4a and one compare
+        b, by = bound_ms(card, c * d + pool * 4 + d + k * 8, alu_ops=c * (d // 4 + 1),
+                         f32_ops=pool)
+        hybrid_ok = c % (fs.ROWS_PER_TILE * fs.LANES) == 0
+        results["cosine_i8_mxu"].append({
+            "c": c, "d": d, "rpt": rpt, "ties": ties, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: fs.cosine_int8_topk_mxu(q, db, rn, k)),
+            "cells_ms": time_ms(torch, lambda: fs._cosine_i8_mxu_cells_cuda(q, db)),
+            "plain_ms": time_ms(torch, lambda: fs.cosine_int8_topk_mxu_plain(q, db, rn, k)),
+            "library_ms": time_ms(torch, lambda: fs.cosine_int8_topk_hybrid(q, db, rn, k))
+            if hybrid_ok else None,
+            "bound_ms": b, "bound_by": by,
+        })
+        if d == 128 and not ties:
+            try:
+                fs.cosine_int8_topk_mxu(q, db, rn, pool + 1)
+                raised = False
+            except ValueError:
+                raised = True
+            check(raised, "cosine_int8_topk_mxu raises on k above the candidate pool")
+        del db, rn
+        torch.cuda.empty_cache()
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -2223,6 +2375,72 @@ def phase_sharded(torch, dev, n_served: int = SHARD_SERVED_ROWS) -> dict:
         _close_backend(torch, server, backend, tmp)
 
 
+# -- phase 12 ---------------------------------------------------------------
+
+
+# the bench keys phase 12 runs: the headline and the 10M x 64 query keys
+BENCH_ONLY = "phash,10m_x64"
+BENCH_KEYS = ("query_hamming_p50_ms_10m_x64bit", "query_hamming_fused_p50_ms_10m_x64bit",
+              "query_cosine_int8_p50_ms_10m_x64", "query_cosine_int8_hybrid_p50_ms_10m_x64",
+              "query_cosine_int8_mxu_p50_ms_10m_x64", "query_cosine_int8_fused_p50_ms_10m_x64")
+# the kernels those keys run: #4 (hybrid), #6 (fused Hamming), #7, #8
+BENCH_KERNELS = ("dots_norm_topk_fused", "hamming_topk_fused", "cosine_int8_topk_fused",
+                 "cosine_int8_topk_mxu")
+
+
+def phase_bench(torch, dev) -> dict:
+    """The port's bench entry point (ucfp_tpu_torch.bench.main), in this
+    process so the launch counts show what it ran: the phash headline and
+    the 10M x 64 keys (UCFP_BENCH_ONLY=phash,10m_x64 with
+    UCFP_BENCH_FULL=1 for the exact ones). Every key must be a finite
+    positive number, #4, #6, #7 and #8 must launch, and the last line must
+    parse and hold at most 1.5 KB."""
+    import math
+
+    from ucfp_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    env = {"UCFP_BENCH_ONLY": BENCH_ONLY, "UCFP_BENCH_FULL": "1"}
+    saved = {name: os.environ.get(name) for name in (*env, "UCFP_BENCH_BUDGET_S")}
+    os.environ.update(env)
+    os.environ.pop("UCFP_BENCH_BUDGET_S", None)
+    buf = io.StringIO()
+    try:
+        reset_counts()
+        # ---- the main path: the bench as a user runs it, on the card
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--device", str(dev)])
+        launches = read_counts()
+        # ---- end of the main path
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    check(rc == 0, f"bench exit code {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    check(len(lines) >= 1 and len(lines[-1].encode()) <= bench.LAST_LINE_MAX,
+          "bench last line at most 1.5 KB")
+    last = json.loads(lines[-1])
+
+    def positive(x):
+        return isinstance(x, float) and math.isfinite(x) and x > 0
+
+    check(positive(last["value"]), f"bench headline {last['value']!r}")
+    check(set(last["extra"]) == set(BENCH_KEYS), f"bench keys {sorted(last['extra'])}")
+    for key in BENCH_KEYS:
+        check(positive(last["extra"][key]), f"bench {key} = {last['extra'][key]!r}")
+    for name in BENCH_KERNELS:
+        check(launches[name] > 0, f"the bench launched {name}")
+    check(last["device"]["card"] == _smi("name,power.limit"),
+          f"the bench names the card: {last['device']}")
+    out = {"bench": last, "last_line_bytes": len(lines[-1].encode()),
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    say("bench: " + json.dumps(out))
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2240,6 +2458,7 @@ def _findings_line(kernels: dict, served: list) -> dict:
     scan, int4, int2, knn = "pallas_scan.py", "pallas_int4.py", "pallas_int2.py", "knn.py"
     source = {scan: "fused_scan.cu", int4: "int4_scan.cu", int2: "int2_scan.cu",
               knn: "sketch_scan.cu"}
+    int8_src = "int8_scan.cu"  # #7 and #8, pallas_scan.py's int8-cosine scans
     rows = (
         ("scores_topk_fused_batched", scan, 487, "scores",
          pick(kernels["scores"], q=32, dtype="float32", ties=False), {"q": 32}),
@@ -2270,10 +2489,16 @@ def _findings_line(kernels: dict, served: list) -> dict:
         ("hamming_topk_fused", scan, 95, "hamming1",
          pick(kernels["hamming1"], c=SHARD_HAMMING_ROWS // SHARDS, w=2, ties=False),
          {"q": 1, "w": 2}),
+        ("cosine_int8_topk_fused", scan, 604, "cosine_i8",
+         pick(kernels["cosine_i8"], c=BENCH_X64_ROWS, d=64, ties=False), {"q": 1, "d": 64}),
+        ("cosine_int8_topk_mxu", scan, 718, "cosine_i8_mxu",
+         pick(kernels["cosine_i8_mxu"], c=BENCH_X64_ROWS, d=64, ties=False),
+         {"q": 1, "d": 64, "rpt": 1024}),
     )
     return {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "ucfp_tpu_torch/csrc/" + source[path],
+         "source": "ucfp_tpu_torch/csrc/" + (int8_src if key.startswith("cosine_i8")
+                                             else source[path]),
          "replaces": f"ucfp_tpu/ops/{path}:{line}",
          "launches": launches.get(name),
          "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
@@ -2287,7 +2512,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="device,build,kernels,conformance,served,int8,qbatch,int4,"
-                           "int2,sketch,sharded")
+                           "int2,sketch,sharded,bench")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -2313,7 +2538,7 @@ def main() -> int:
     for name, phase in (("served", phase_served), ("int8", phase_int8),
                         ("qbatch", phase_qbatch), ("int4", phase_int4),
                         ("int2", phase_int2), ("sketch", phase_sketch),
-                        ("sharded", phase_sharded)):
+                        ("sharded", phase_sharded), ("bench", phase_bench)):
         if name in phases:
             served.append(phase(torch, dev))
     if kernels is not None:

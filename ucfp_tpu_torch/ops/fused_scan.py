@@ -21,7 +21,17 @@ Kernels (CUDA C++ for sm_90a, csrc/fused_scan.cu):
     query block; dots_norm_topk_fused is its single-query [C] form;
   * hamming_topk_fused — one query's XOR-popcount + per-cell argmin with
     no validity mask, tiles of ROWS_PER_TILE=256 rows x 128 lanes (the
-    per-shard scan of parallel.sharded_knn.sharded_hamming_topk_fused).
+    per-shard scan of parallel.sharded_knn.sharded_hamming_topk_fused);
+  * cosine_int8_topk_fused — one int8 query's dots against the [C, D]
+    int8 catalog, each divided by max(|row|, 1e-9), then the per-cell
+    argbest, tiles of ROWS_PER_TILE_C=128 rows x 128 lanes;
+  * cosine_int8_topk_mxu — the catalog read as 128-byte lines of
+    128 // D rows; per (tile, segment, slot) cell the best raw dot and
+    its first line, then /|row| on those candidates only.
+
+cosine_int8_topk_hybrid (the int8 product of ops.knn.int8_dots feeding
+dots_norm_topk_fused) is the same function as cosine_int8_topk_fused
+with no kernel of its own.
 
 The final selection runs over the flat candidate array in the order
 t*128 + lane (the reference's moveaxis/reshape order, NOT global row
@@ -41,18 +51,25 @@ import torch
 
 LANES = 128
 ROWS_PER_TILE = 256  # scores tile: ROWS_PER_TILE * 128 catalog rows
+ROWS_PER_TILE_C = 128  # int8-cosine tile: ROWS_PER_TILE_C * 128 catalog rows
+SUB = 8  # segments per int8-cosine line tile (cosine_int8_topk_mxu)
 HAMMING_ROWS_PER_TILE = ROWS_PER_TILE // 2  # Hamming tile: 128 * 128 rows
 QSEL = 8  # queries per Hamming block: one catalog read serves 8 queries
 # widest fingerprint (u32 words) the fused Hamming kernel takes; wider
 # fingerprints ride the exact ops.knn.hamming_topk path
 MAX_FUSED_HAMMING_WORDS = 16
+# row widths the int8-cosine kernels take on the card (those the GPU
+# smoke test holds bit-equal); the plain versions take any D
+COSINE_I8_KERNEL_DIMS = (64,)
+MXU_KERNEL_DIMS = (32, 64, 128)
 _INVALID_DIST = 1 << 30
 NEG_INF = float("-inf")
 
 #: kernel launches since the last reset_launch_counts(), by wrapper name
 LAUNCHES = {"scores_topk_fused_batched": 0, "hamming_topk_fused_batched": 0,
             "scores_topk_fused": 0, "dots_norm_topk_fused": 0,
-            "dots_norm_topk_fused_batched": 0, "hamming_topk_fused": 0}
+            "dots_norm_topk_fused_batched": 0, "hamming_topk_fused": 0,
+            "cosine_int8_topk_fused": 0, "cosine_int8_topk_mxu": 0}
 _count_lock = threading.Lock()
 
 
@@ -87,6 +104,10 @@ def _kernels():
         lib.ucfp_dots_norm_cells.argtypes = [p, i, ll, p, ll, p, p, p, p]
         lib.ucfp_hamming_topk_cells.restype = i
         lib.ucfp_hamming_topk_cells.argtypes = [p, i, p, ll, p, p, p]
+        lib.ucfp_cosine_i8_cells.restype = i
+        lib.ucfp_cosine_i8_cells.argtypes = [p, i, p, ll, p, p, p, p]
+        lib.ucfp_cosine_i8_mxu_cells.restype = i
+        lib.ucfp_cosine_i8_mxu_cells.argtypes = [p, i, p, ll, i, p, p, p]
         _lib = lib
     return _lib
 
@@ -105,21 +126,22 @@ def _stream_ptr(t: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _scores_cells_plain(scores: torch.Tensor, largest: bool):
+def _scores_cells_plain(scores: torch.Tensor, largest: bool,
+                        rows_per_tile: int = ROWS_PER_TILE):
     """_qblock_argbest literally: max (or min) per cell, then the smallest
     row among the hits; the value is the winning row's own element."""
     q, c = scores.shape
-    tiles = c // (ROWS_PER_TILE * LANES)
-    s4 = scores.reshape(q, tiles, ROWS_PER_TILE, LANES)
+    tiles = c // (rows_per_tile * LANES)
+    s4 = scores.reshape(q, tiles, rows_per_tile, LANES)
     f = s4.float()
     best = f.amax(dim=2) if largest else f.amin(dim=2)
-    rows = torch.arange(ROWS_PER_TILE, device=scores.device).view(1, 1, -1, 1)
+    rows = torch.arange(rows_per_tile, device=scores.device).view(1, 1, -1, 1)
     first = torch.where(f == best[:, :, None, :], rows,
-                        ROWS_PER_TILE).amin(dim=2)  # [Q, T, 128]
+                        rows_per_tile).amin(dim=2)  # [Q, T, 128]
     val = torch.gather(s4, 2, first[:, :, None, :]).squeeze(2)
     t_ix = torch.arange(tiles, device=scores.device).view(1, -1, 1)
     lanes = torch.arange(LANES, device=scores.device).view(1, 1, -1)
-    gidx = (t_ix * ROWS_PER_TILE + first) * LANES + lanes
+    gidx = (t_ix * rows_per_tile + first) * LANES + lanes
     return val.reshape(q, -1), gidx.to(torch.int32).reshape(q, -1)
 
 
@@ -261,6 +283,104 @@ def _dots_norm_cells_cuda(dots: torch.Tensor, row_norm: torch.Tensor,
     rc = _kernels().ucfp_dots_norm_cells(
         dots.data_ptr(), q, c, row_norm.data_ptr(), int(n_valid),
         inv_q.data_ptr(), best.data_ptr(), gidx.data_ptr(), _stream_ptr(dots),
+    )
+    _check(rc, name)
+    _count(name)
+    return best, gidx
+
+
+def _row_dots(q8: torch.Tensor, db8: torch.Tensor) -> torch.Tensor:
+    """[D] int8 x [C, D] int8 -> [C] int32 exact dots, by the int8 product
+    the served paths use (ops.knn.int8_dots: torch._int_mm on the card)."""
+    from .knn import int8_dots  # ops.knn imports this module
+
+    return int8_dots(q8[None], db8)[0]
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _cosine_i8_cells_plain(q8: torch.Tensor, db8: torch.Tensor,
+                           row_norm: torch.Tensor):
+    """_cosine_i8_kernel literally: each row's exact dot, as float32, over
+    max(|row|, 1e-9), then the per-(tile, lane) argbest over 128-row
+    tiles (the largest score, the smallest row among the hits)."""
+    scores = _row_dots(q8, db8).float() / torch.clamp(row_norm, min=1e-9)
+    return _scores_cells_plain(scores[None], True, ROWS_PER_TILE_C)
+
+
+def _cosine_i8_cells_cuda(q8: torch.Tensor, db8: torch.Tensor,
+                          row_norm: torch.Tensor):
+    name = "cosine_int8_topk_fused"
+    c, d = db8.shape
+    tiles = c // (ROWS_PER_TILE_C * LANES)
+    best = torch.empty((1, tiles * LANES), dtype=torch.float32, device=db8.device)
+    gidx = torch.empty((1, tiles * LANES), dtype=torch.int32, device=db8.device)
+    q = _aligned16(q8)
+    rc = _kernels().ucfp_cosine_i8_cells(
+        q.data_ptr(), d, db8.data_ptr(), c, row_norm.data_ptr(), best.data_ptr(),
+        gidx.data_ptr(), _stream_ptr(db8),
+    )
+    _check(rc, name)
+    _count(name)
+    return best, gidx
+
+
+def _pick_rpt(packed_rows: int) -> int:
+    """Largest sublane-aligned tile height dividing the packed row count.
+    Copied from ucfp_tpu/ops/pallas_scan.py."""
+    for rpt in (1024, 800, 512, 320, 256, 160, 128, 96, 64, 32):
+        if packed_rows % rpt == 0:
+            return rpt
+    raise ValueError(
+        f"packed row count {packed_rows} has no 32-multiple tile divisor "
+        f"<= 1024; pad the candidate set"
+    )
+
+
+def _mxu_layout(c: int, d: int) -> tuple[int, int, int]:
+    """(rows per 128-byte line, lines, lines per tile), with the
+    reference's errors in its order."""
+    if LANES % d:
+        raise ValueError(f"cosine_int8_topk_mxu requires 128 % D == 0, got D={d}")
+    per = LANES // d
+    if c % per:
+        raise ValueError(f"C={c} must be a multiple of {per} for D={d}")
+    lines = c // per
+    return per, lines, _pick_rpt(lines)
+
+
+def _cosine_i8_mxu_cells_plain(q8: torch.Tensor, db8: torch.Tensor):
+    """_cosine_i8_mxu_kernel literally: per (tile, segment, slot) cell the
+    largest raw dot and the first line among the hits -> ([cells] f32
+    dots, [cells] int32 rows) in [tiles, SUB, per] order."""
+    c, d = db8.shape
+    per, lines, rpt = _mxu_layout(c, d)
+    tiles, seg = lines // rpt, rpt // SUB
+    dev = db8.device
+    d4 = _row_dots(q8, db8).view(tiles, SUB, seg, per)
+    best = d4.amax(dim=2)  # [T, SUB, per]
+    rows = torch.arange(seg, device=dev).view(1, 1, -1, 1)
+    first = torch.where(d4 == best[:, :, None, :], rows, seg).amin(dim=2)
+    base = torch.arange(tiles, device=dev).view(-1, 1, 1) * rpt
+    segs = torch.arange(SUB, device=dev).view(1, -1, 1) * seg
+    slots = torch.arange(per, device=dev).view(1, 1, -1)
+    gidx = per * (base + segs + first) + slots
+    return best.float().reshape(-1), gidx.to(torch.int32).reshape(-1)
+
+
+def _cosine_i8_mxu_cells_cuda(q8: torch.Tensor, db8: torch.Tensor):
+    name = "cosine_int8_topk_mxu"
+    c, d = db8.shape
+    per, lines, rpt = _mxu_layout(c, d)
+    n = lines // rpt * SUB * per
+    best = torch.empty(n, dtype=torch.float32, device=db8.device)
+    gidx = torch.empty(n, dtype=torch.int32, device=db8.device)
+    q = _aligned16(q8)
+    rc = _kernels().ucfp_cosine_i8_mxu_cells(
+        q.data_ptr(), d, db8.data_ptr(), lines, rpt, best.data_ptr(), gidx.data_ptr(),
+        _stream_ptr(db8),
     )
     _check(rc, name)
     _count(name)
@@ -491,3 +611,105 @@ def dots_norm_topk_fused_batched_plain(dots: torch.Tensor, row_norm: torch.Tenso
     """Plain PyTorch version of dots_norm_topk_fused_batched on any device."""
     return _dots_norm_topk("dots_norm_topk_fused_batched", dots, row_norm,
                            n_valid, inv_qnorm, k, plain=True)
+
+
+def _check_cosine_i8(name: str, q8: torch.Tensor, db8: torch.Tensor,
+                     row_norm: torch.Tensor, kernel_dims: tuple = ()) -> None:
+    """Shapes and types; for the card's kernel (kernel_dims given) also its
+    row widths, one device, contiguity and 16-byte row alignment."""
+    if q8.dim() != 1 or db8.dim() != 2 or q8.shape[0] != db8.shape[1]:
+        raise ValueError(f"{name}: q8 [D] and db8 [C, D] must share D, got "
+                         f"{tuple(q8.shape)} and {tuple(db8.shape)}")
+    if q8.dtype != torch.int8 or db8.dtype != torch.int8:
+        raise ValueError(f"{name}: q8 and db8 must be int8")
+    if row_norm.dtype != torch.float32 or row_norm.shape != (db8.shape[0],):
+        raise ValueError(f"{name}: row_norm must be a [C={db8.shape[0]}] float32 vector")
+    if not kernel_dims:
+        return
+    if db8.shape[1] not in kernel_dims:
+        raise ValueError(f"{name}: the kernel takes D in {kernel_dims}, got {db8.shape[1]}")
+    for arg, t in (("q8", q8), ("db8", db8), ("row_norm", row_norm)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.device != db8.device:
+            raise ValueError(f"{name}: {arg} must be on {db8.device}")
+    if db8.data_ptr() % 16:
+        raise ValueError(f"{name}: db8 must be 16-byte aligned (vector row loads)")
+
+
+def _cosine_i8_fused(q8, db8, row_norm, k: int, plain: bool):
+    name = "cosine_int8_topk_fused"
+    plain = plain or db8.device.type == "cpu"
+    _check_cosine_i8(name, q8, db8, row_norm, () if plain else COSINE_I8_KERNEL_DIMS)
+    c = db8.shape[0]
+    if c % (ROWS_PER_TILE_C * LANES):
+        raise ValueError(f"{name} requires C % {ROWS_PER_TILE_C * LANES} == 0, got {c}")
+    if plain:
+        vals, gidx = _cosine_i8_cells_plain(q8, db8, row_norm)
+    else:
+        vals, gidx = _cosine_i8_cells_cuda(q8, db8, row_norm)
+    v, i = _select(vals, gidx, k, largest=True)
+    return v[0], i[0]
+
+
+def cosine_int8_topk_fused(q8: torch.Tensor, db8: torch.Tensor,
+                           row_norm: torch.Tensor, k: int):
+    """q8 [D] int8 (the quantized query), db8 [C, D] int8 with C % 16384
+    == 0, row_norm [C] f32 -> ([k] f32 dot / max(|row|, 1e-9) -- divide
+    by |q8| outside -- and [k] int32 rows), best first: the best row of
+    each (128-row tile, lane) cell, then the top k of those."""
+    return _cosine_i8_fused(q8, db8, row_norm, k, plain=False)
+
+
+def cosine_int8_topk_fused_plain(q8: torch.Tensor, db8: torch.Tensor,
+                                 row_norm: torch.Tensor, k: int):
+    """Plain PyTorch version of cosine_int8_topk_fused on any device."""
+    return _cosine_i8_fused(q8, db8, row_norm, k, plain=True)
+
+
+def _cosine_i8_mxu(q8, db8, row_norm, k: int, plain: bool):
+    name = "cosine_int8_topk_mxu"
+    plain = plain or db8.device.type == "cpu"
+    _check_cosine_i8(name, q8, db8, row_norm, () if plain else MXU_KERNEL_DIMS)
+    c, d = db8.shape
+    per, lines, rpt = _mxu_layout(c, d)
+    pool = lines // rpt * SUB * per
+    if k > pool:
+        raise ValueError(
+            f"k={k} exceeds the candidate pool {pool} (grid {lines // rpt} x "
+            f"{SUB} segments x {per} rows/line)"
+        )
+    if plain:
+        dots, gidx = _cosine_i8_mxu_cells_plain(q8, db8)
+    else:
+        dots, gidx = _cosine_i8_mxu_cells_cuda(q8, db8)
+    # only the candidates are normalized (pallas_scan.py:767)
+    cand = dots / torch.clamp(row_norm[gidx.long()], min=1e-9)
+    v, i = _select(cand[None], gidx[None], k, largest=True)
+    return v[0], i[0]
+
+
+def cosine_int8_topk_mxu(q8: torch.Tensor, db8: torch.Tensor,
+                         row_norm: torch.Tensor, k: int):
+    """q8 [D] int8 with 128 % D == 0, db8 [C, D] int8 read as 128-byte
+    lines of 128 // D rows, row_norm [C] f32 -> ([k] f32 dot / max(|row|,
+    1e-9) -- divide by |q8| outside -- and [k] int32 rows), best first:
+    per (tile, segment, slot) cell the row of the best raw dot, then the
+    top k of those candidates by dot / |row|."""
+    return _cosine_i8_mxu(q8, db8, row_norm, k, plain=False)
+
+
+def cosine_int8_topk_mxu_plain(q8: torch.Tensor, db8: torch.Tensor,
+                               row_norm: torch.Tensor, k: int):
+    """Plain PyTorch version of cosine_int8_topk_mxu on any device."""
+    return _cosine_i8_mxu(q8, db8, row_norm, k, plain=True)
+
+
+def cosine_int8_topk_hybrid(q8: torch.Tensor, db8: torch.Tensor,
+                            row_norm: torch.Tensor, k: int):
+    """The int8 product (ops.knn.int8_dots) fed to dots_norm_topk_fused:
+    q8 [D] int8, db8 [C, D] int8 with C % 32768 == 0, row_norm [C] f32 ->
+    ([k] f32 dot / max(|row|, 1e-9), [k] int32 rows), best first;
+    zero-norm rows score -inf. No kernel of its own."""
+    dots = _row_dots(q8, db8)
+    return dots_norm_topk_fused(dots, row_norm, db8.shape[0], 1.0, k)
