@@ -28,7 +28,16 @@ each:
                   at 2^22 x 64; #8 at D = 64 over 9,994,240 rows, D = 32
                   and 128, and a line count that tiles by 800) bit-equal,
                   cells and top-k, with tie-heavy catalogs and an all-zero
-                  query, and their errors raised
+                  query, and their errors raised; the shared top-k
+                  selection kernel (select_topk) bit-equal to the stable
+                  sort at 16,384, 39,040 and 78,080 candidates, Q = 1, 5
+                  and 64, k from 1 to N (above its shared-memory sort's
+                  16,384 too), f32 / bf16 / int32, ties, +-0.0 and +-inf;
+                  every fused function's selection share beside
+                  torch.topk over the same candidates; #3 at the int4
+                  pool (k = 2048) at 2^22, 2^23 and 9,994,240 rows and #1
+                  at the int4 batch pool (bf16, k = 640); for #1, #3 and
+                  the selection also the card's own time (torch.profiler)
   4. conformance  the image hashes computed on the card against
                   tests/goldens/conformance.json
   5. served       the port's EmbeddedBackend on the card, bulk-loaded with
@@ -230,6 +239,24 @@ def time_ms(torch, fn, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, runs: int = 20):
+    """The card's own time for fn(): the CUDA kernels' time per call in a
+    torch.profiler trace of `runs` calls, or None where the trace shows no
+    device time. A small function's CUDA-event time is its host time when
+    the wrapper takes longer to enqueue than the card takes to run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return total / runs / 1e3 if total > 0 else None
+
+
 def bound_ms(card: dict, nbytes: float, alu_ops: float = 0.0,
              popc_ops: float = 0.0, f32_ops: float = 0.0,
              int8_mma_ops: float = 0.0) -> tuple[float, str]:
@@ -303,6 +330,34 @@ def _max_abs(torch, a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def _select_split(torch, vals, gidx, k: int, largest: bool) -> dict:
+    """A fused function's selection share: the selection kernel alone on
+    the function's own candidates, and torch.topk over the same
+    candidates (the selection half's library yardstick)."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+
+    return {"select_ms": time_ms(torch, lambda: fs._select_cuda(vals, gidx, k, largest)),
+            "select_library_ms": time_ms(torch, lambda: torch.topk(
+                vals, k, dim=1, largest=largest))}
+
+
+def _library_pair(torch, s, rows_per_tile: int, k: int, largest: bool = True) -> dict:
+    """The scores scans' library yardsticks: torch.max (or min) over each
+    (tile, lane) cell of [Q, C] scores, and that call followed by torch.topk
+    over the cells' values, timed as one pair."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+
+    q, c = s.shape
+    s4 = s.view(q, c // (rows_per_tile * fs.LANES), rows_per_tile, fs.LANES)
+    red = torch.max if largest else torch.min
+
+    def pair():
+        return torch.topk(red(s4, dim=2).values.reshape(q, -1), k, dim=1, largest=largest)
+
+    return {"cells_library_ms": time_ms(torch, lambda: red(s4, dim=2)),
+            "library_ms": time_ms(torch, pair)}
+
+
 def phase_kernels(torch, dev, card: dict) -> dict:
     from ucfp_tpu_torch.ops import fused_scan as fs
 
@@ -329,25 +384,27 @@ def phase_kernels(torch, dev, card: dict) -> dict:
         check(_same_bits(torch, cells_k[0], cells_p[0])
               and torch.equal(cells_k[1], cells_p[1]),
               f"scores cells bit-equal q={q} {dtype} ties={ties}")
-        vk, ik = fs.scores_topk_fused_batched(s, k)
-        torch.cuda.synchronize()
-        vp, ip = fs.scores_topk_fused_batched_plain(s, k)
-        check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
-              f"scores top-k bit-equal q={q} {dtype} ties={ties}")
-        esize = s.element_size()
-        nbytes = q * c * esize + q * k * (esize + 4)
-        b, by = bound_ms(card, nbytes, alu_ops=q * c)  # one compare per score
-        t = c // (fs.ROWS_PER_TILE * fs.LANES)
-        results["scores"].append({
-            "q": q, "c": c, "dtype": str(dtype).replace("torch.", ""),
-            "ties": ties, "max_abs_err": _max_abs(torch, vk, vp),
-            "ms": time_ms(torch, lambda: fs.scores_topk_fused_batched(s, k)),
-            "cells_ms": time_ms(torch, lambda: fs._scores_cells_cuda(s, True)),
-            "plain_ms": time_ms(torch, lambda: fs.scores_topk_fused_batched_plain(s, k)),
-            "library_ms": time_ms(torch, lambda: torch.max(
-                s.view(q, t, fs.ROWS_PER_TILE, fs.LANES), dim=2)),
-            "bound_ms": b, "bound_by": by,
-        })
+        # k = 16, and for bf16 at Q = 32 also the int4 batch pool (k = 640)
+        for kk in (k, 640) if dtype == torch.bfloat16 and q == 32 else (k,):
+            vk, ik = fs.scores_topk_fused_batched(s, kk)
+            torch.cuda.synchronize()
+            vp, ip = fs.scores_topk_fused_batched_plain(s, kk)
+            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                  f"scores top-k bit-equal q={q} {dtype} ties={ties} k={kk}")
+            esize = s.element_size()
+            nbytes = q * c * esize + q * kk * (esize + 4)
+            b, by = bound_ms(card, nbytes, alu_ops=q * c)  # one compare per score
+            results["scores"].append({
+                "q": q, "c": c, "k": kk, "dtype": str(dtype).replace("torch.", ""),
+                "ties": ties, "max_abs_err": _max_abs(torch, vk, vp),
+                "ms": time_ms(torch, lambda: fs.scores_topk_fused_batched(s, kk)),
+                "device_ms": device_ms(torch, lambda: fs.scores_topk_fused_batched(s, kk)),
+                "cells_ms": time_ms(torch, lambda: fs._scores_cells_cuda(s, True)),
+                **_select_split(torch, *cells_k, kk, True),
+                "plain_ms": time_ms(torch, lambda: fs.scores_topk_fused_batched_plain(s, kk)),
+                **_library_pair(torch, s, fs.ROWS_PER_TILE, kk),
+                "bound_ms": b, "bound_by": by,
+            })
 
     # kernel #2: fused XOR-popcount + per-cell argmin
     for q, c, w, ties in ((1, 1 << 23, 2, False), (32, 1 << 23, 2, False),
@@ -385,6 +442,7 @@ def phase_kernels(torch, dev, card: dict) -> dict:
             "max_abs_err": _max_abs(torch, dk, dp),
             "ms": time_ms(torch, lambda: fs.hamming_topk_fused_batched(qs, db, valid, k)),
             "cells_ms": time_ms(torch, lambda: fs._hamming_cells_cuda(qs, db, valid)),
+            **_select_split(torch, *cells_k, k, False),
             "plain_ms": time_ms(torch, lambda: fs.hamming_topk_fused_batched_plain(
                 qs, db, valid, k)),
             "library_ms": None, "bound_ms": b, "bound_by": by,
@@ -394,11 +452,16 @@ def phase_kernels(torch, dev, card: dict) -> dict:
                    int_mm_rules=[_int_mm_rules(torch, dev)])
     for c in INT8_KERNEL_ROWS:
         _kernels_int8(torch, dev, card, g, k, c, results)
+    # #3 at the served catalogs and at the bench's 10M rows (305 tiles)
+    for c in (*INT8_KERNEL_ROWS, BENCH_X64_ROWS):
+        _kernels_scores1(torch, dev, card, g, c, results)
+    _kernels_select(torch, dev, card, g, results)
     results.update(int4_pack=[], int4_dots=[], int4_scores=[], int4_scores_batched=[])
     for c in INT4_KERNEL_ROWS:
         _kernels_int4(torch, dev, card, g, c, DIM, results)
     # an even width that is not a multiple of 8: a partial last dim group
     _kernels_int4(torch, dev, card, g, INT4_ROWS, DIM + 2, results)
+    _kernels_int4_wide(torch, dev, g, results)
     results.update(int2_pack=[], int2_scores=[], int2_scores_batched=[], int2_topq=[])
     for c in INT2_KERNEL_ROWS:
         _kernels_int2(torch, dev, card, g, c, DIM, results)
@@ -454,14 +517,14 @@ def _int_mm_rules(torch, dev) -> dict:
 
 
 def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> None:
-    """Kernels #3-#5 of the int8 tier against their plain versions, bit
+    """Kernels #4 and #5 of the int8 tier against their plain versions, bit
     for bit, at C catalog rows and at tie-heavy shapes; then the int8
-    product (a library call) against its plain version."""
+    product (a library call) against its plain version. #3 has its own
+    helper (_kernels_scores1)."""
     from ucfp_tpu_torch.ops import fused_scan as fs
     from ucfp_tpu_torch.ops import knn
 
     tile = fs.ROWS_PER_TILE * fs.LANES
-    tiles = c // tile
     dot_max = 127 * 127 * DIM
 
     def dots_case(q, ties):
@@ -509,6 +572,7 @@ def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> N
             "ms": time_ms(torch, lambda: fs.dots_norm_topk_fused(d1, rn, c, inv_q[0], k)),
             "cells_ms": time_ms(torch, lambda: fs._dots_norm_cells_cuda(
                 dots, rn, c, inv_q, "dots_norm_topk_fused")),
+            **_select_split(torch, *cells_k, k, True),
             "plain_ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_plain(
                 d1, rn, c, inv_q[0], k)),
             "library_ms": None, "bound_ms": b, "bound_by": by,
@@ -533,51 +597,19 @@ def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> N
             check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
                   f"dots_norm_topk_fused_batched bit-equal q={q} n={n} ties={ties}")
         b, by = dots_bound(q)
+        cells_k = fs._dots_norm_cells_cuda(dots, rn, c, inv_q, "dots_norm_topk_fused_batched")
         results["dots_norm_batched"].append({
             "q": q, "c": c, "ties": ties, "max_abs_err": _max_abs(torch, vk, vp),
             "ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_batched(
                 dots, rn, c, inv_q, k)),
             "cells_ms": time_ms(torch, lambda: fs._dots_norm_cells_cuda(
                 dots, rn, c, inv_q, "dots_norm_topk_fused_batched")),
+            **_select_split(torch, *cells_k, k, True),
             "plain_ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_batched_plain(
                 dots, rn, c, inv_q, k)),
             "library_ms": None, "bound_ms": b, "bound_by": by,
         })
         del dots
-
-    # kernel #3: one query's scores, largest and smallest first
-    for largest, ties in ((True, False), (False, False), (True, True), (False, True)):
-        if ties:
-            s = torch.zeros(c, device=dev)
-        else:
-            s = torch.randn(c, generator=g, device=dev)
-            s[1000:1300] = s[5]
-            s[c - 500:c - 300] = s[5]
-            s[-70000:-40000] = float("-inf") if largest else float("inf")
-        cells_k = fs._scores_cells_cuda(s[None], largest, "scores_topk_fused")
-        torch.cuda.synchronize()
-        cells_p = fs._scores_cells_plain(s[None], largest)
-        check(_same_bits(torch, cells_k[0], cells_p[0])
-              and torch.equal(cells_k[1], cells_p[1]),
-              f"scores cells bit-equal q=1 largest={largest} ties={ties}")
-        vk, ik = fs.scores_topk_fused(s, k, largest)
-        torch.cuda.synchronize()
-        vp, ip = fs.scores_topk_fused_plain(s, k, largest)
-        check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
-              f"scores_topk_fused bit-equal largest={largest} ties={ties}")
-        b, by = bound_ms(card, c * 4 + k * 8, alu_ops=c)
-        lib = torch.max if largest else torch.min
-        results["scores1"].append({
-            "c": c, "largest": largest, "ties": ties,
-            "max_abs_err": _max_abs(torch, vk, vp),
-            "ms": time_ms(torch, lambda: fs.scores_topk_fused(s, k, largest)),
-            "cells_ms": time_ms(torch, lambda: fs._scores_cells_cuda(
-                s[None], largest, "scores_topk_fused")),
-            "plain_ms": time_ms(torch, lambda: fs.scores_topk_fused_plain(s, k, largest)),
-            "library_ms": time_ms(torch, lambda: lib(
-                s.view(tiles, fs.ROWS_PER_TILE, fs.LANES), dim=1)),
-            "bound_ms": b, "bound_by": by,
-        })
 
     # the int8 product: torch._int_mm, held exact against its plain version
     q8m = torch.randint(-127, 128, (c, knn.padded_dim(DIM)), generator=g,
@@ -602,6 +634,131 @@ def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> N
             "bound_ms": b, "bound_by": by,
         })
     del q8m
+    torch.cuda.empty_cache()
+
+
+def _kernels_scores1(torch, dev, card: dict, g, c: int, results: dict) -> None:
+    """Kernel #3 (one query's scores, largest and smallest first) against
+    its plain version, cells and top-k bit-equal at k = 16 and at the int4
+    single-query pool (k = 2048), on random scores with ties inside and
+    across tiles, +-0.0 and invalid rows, and on all-zero scores; timed
+    (function, cells, selection, each half's library call and the pair)
+    largest first on the random scores."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+
+    for largest, ties in ((True, False), (False, False), (True, True), (False, True)):
+        if ties:
+            s = torch.zeros(c, device=dev)
+        else:
+            s = torch.randn(c, generator=g, device=dev)
+            s[1000:1300] = s[5]
+            s[c - 500:c - 300] = s[5]
+            s[7], s[7 + 128], s[9 + 256 * 128] = -0.0, 0.0, -0.0  # signed zeros
+            s[-70000:-40000] = float("-inf") if largest else float("inf")
+        cells_k = fs._scores_cells_cuda(s[None], largest, "scores_topk_fused")
+        torch.cuda.synchronize()
+        cells_p = fs._scores_cells_plain(s[None], largest)
+        check(_same_bits(torch, cells_k[0], cells_p[0])
+              and torch.equal(cells_k[1], cells_p[1]),
+              f"scores cells bit-equal q=1 c={c} largest={largest} ties={ties}")
+        for k in (16, 2048):
+            vk, ik = fs.scores_topk_fused(s, k, largest)
+            torch.cuda.synchronize()
+            vp, ip = fs.scores_topk_fused_plain(s, k, largest)
+            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                  f"scores_topk_fused bit-equal c={c} k={k} largest={largest} ties={ties}")
+            if ties or not largest:
+                continue
+            b, by = bound_ms(card, c * 4 + k * 8, alu_ops=c)
+            results["scores1"].append({
+                "c": c, "k": k, "largest": largest, "ties": ties,
+                "max_abs_err": _max_abs(torch, vk, vp),
+                "ms": time_ms(torch, lambda: fs.scores_topk_fused(s, k, largest)),
+                "device_ms": device_ms(torch, lambda: fs.scores_topk_fused(s, k, largest)),
+                "cells_ms": time_ms(torch, lambda: fs._scores_cells_cuda(
+                    s[None], largest, "scores_topk_fused")),
+                **_select_split(torch, *cells_k, k, largest),
+                "plain_ms": time_ms(torch, lambda: fs.scores_topk_fused_plain(s, k, largest)),
+                **_library_pair(torch, s[None], fs.ROWS_PER_TILE, k, largest),
+                "bound_ms": b, "bound_by": by,
+            })
+    del s
+    torch.cuda.empty_cache()
+
+
+# the selection kernel's phase-3 sizes: #3's candidates at 2^22 rows, the
+# int4 batch pool's at 9,994,240 / 256 (39,040), and #7 / #8's at the
+# bench's 10M x 64 (78,080); k = 20,000 is above its shared-memory sort
+SELECT_NS = (16384, 39040, 78080)
+SELECT_KS = (1, 10, 640, 2048, 20000)
+
+
+def _kernels_select(torch, dev, card: dict, g, results: dict) -> None:
+    """The shared selection kernel (select_topk) against the stable sort
+    (fused_scan._select_plain), values and indices bit-equal: N = 16,384,
+    39,040 and 78,080 candidates, Q = 1 and 64 (and 5 at 39,040), k from 1
+    to N, largest and smallest first, f32, bf16 and int32 values, on random
+    values, all zeros, a few values repeated in and across tiles, and a
+    mix of +-0.0 and +-inf. Then at Q = 1 its time beside torch.topk over
+    the same candidates, the stable sort's, and the bound."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+
+    results["select"] = []
+    pick = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 1.5, -1.5], device=dev)
+    for n in SELECT_NS:
+        for q in (1, 5, 64) if n == 39040 else (1, 64):
+            gidx = torch.randint(0, 1 << 30, (q, n), generator=g, device=dev,
+                                 dtype=torch.int32)
+            for dtype in (torch.float32, torch.bfloat16, torch.int32):
+                for kind in ("random", "zeros", "repeats", "signed"):
+                    if dtype == torch.int32:
+                        if kind == "signed":
+                            continue
+                        hi = {"random": 1 << 30, "zeros": 1, "repeats": 40}[kind]
+                        vals = torch.randint(0, hi, (q, n), generator=g, device=dev,
+                                             dtype=torch.int32)
+                    else:
+                        vals = torch.randn((q, n), generator=g, device=dev)
+                        if kind == "zeros":
+                            vals.zero_()
+                        elif kind == "repeats":
+                            vals = vals[:, :7][:, torch.randint(0, 7, (n,), generator=g,
+                                                                device=dev)]
+                        elif kind == "signed":
+                            vals = pick[torch.randint(0, len(pick), (q, n), generator=g,
+                                                      device=dev)]
+                        vals = vals.to(dtype).contiguous()
+                    for largest in (True, False):
+                        for k in (*SELECT_KS, n // 2, n):
+                            if k > n:
+                                continue
+                            vk, ik = fs._select_cuda(vals, gidx, k, largest)
+                            torch.cuda.synchronize()
+                            vp, ip = fs._select_plain(vals, gidx, k, largest)
+                            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                                  f"select_topk bit-equal n={n} q={q} {dtype} {kind} "
+                                  f"largest={largest} k={k}")
+            del vals, gidx
+        vals = torch.randn((1, n), generator=g, device=dev)
+        gidx = torch.randint(0, 1 << 30, (1, n), generator=g, device=dev, dtype=torch.int32)
+        for k in (k for k in SELECT_KS[1:] if k <= n):
+            vk, ik = fs._select_cuda(vals, gidx, k, True)
+            torch.cuda.synchronize()
+            vp, ip = fs._select_plain(vals, gidx, k, True)
+            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                  f"select_topk bit-equal on the timed inputs n={n} k={k}")
+            # candidates and their k indices read once, k values and indices written
+            b, by = bound_ms(card, n * 4 + k * 4 + k * 8)
+            results["select"].append({
+                "q": 1, "n": n, "k": k, "dtype": "float32",
+                "max_abs_err": _max_abs(torch, vk, vp),
+                "ms": time_ms(torch, lambda: fs._select_cuda(vals, gidx, k, True)),
+                "device_ms": device_ms(torch, lambda: fs._select_cuda(vals, gidx, k, True)),
+                "plain_ms": time_ms(torch, lambda: fs._select_plain(vals, gidx, k, True)),
+                "library_ms": time_ms(torch, lambda: torch.topk(vals, k, dim=1)),
+                "library_device_ms": device_ms(torch, lambda: torch.topk(vals, k, dim=1)),
+                "bound_ms": b, "bound_by": by,
+            })
     torch.cuda.empty_cache()
 
 
@@ -746,6 +903,50 @@ def _kernels_int4(torch, dev, card: dict, g, c: int, d: int, results: dict) -> N
         })
     del packed_t, inv_n4, unpacked
     torch.cuda.empty_cache()
+
+
+# a width past D/2 = 10,240, where one group of 8 queries' fragments no
+# longer fits the batched kernel's shared memory and it reads them from
+# global memory; D/2 = 10,301 also ends in a partial dim group and k-step
+INT4_WIDE_D = 20602
+INT4_WIDE_ROWS = 2176  # 8.5 tiles of 256 rows
+
+
+def _kernels_int4_wide(torch, dev, g, results: dict) -> None:
+    """The batched int4 kernel (#10, and #11 at nq > 1) at D = 20,602
+    against the plain versions, bit for bit: Q in {2, 5, 64, 70}, dots,
+    float32 and bfloat16 out, n at C, C - 1024 and mid-tile. The plain
+    versions run on the CPU: on the card their float32 products are exact
+    only below D/2 = 5,744."""
+    from ucfp_tpu_torch.ops import int4_scan as i4
+
+    c, d = INT4_WIDE_ROWS, INT4_WIDE_D
+    dp = d // 2
+    packed_t, inv_n4 = _int4_case(torch, dev, g, c, d, results)
+    qs = torch.randint(-127, 128, (70, d), generator=g, device=dev, dtype=torch.int8)
+    qs[0] = 127
+    qs[1] = -127
+    wh, wl = qs[:, :dp].contiguous(), qs[:, dp:].contiguous()
+    corrs = 8 * wl.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    p_c, wh_c, wl_c, corrs_c, inv_c = (t.cpu() for t in (packed_t, wh, wl, corrs, inv_n4))
+    err = {"int4_dots": 0.0, "int4_scores_batched": 0.0}
+    for q in (2, 5, 64, 70):
+        got = i4.int4_dots(packed_t, wh[:q], wl[:q]).cpu()
+        check(torch.equal(got, i4.int4_dots_plain(p_c, wh_c[:q], wl_c[:q])),
+              f"int4_dots bit-equal q={q} c={c} d={d}")
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (c, c - 1024, c // 2 + 77):
+                got = i4.int4_masked_scores_batched(packed_t, wh[:q], wl[:q], corrs[:q],
+                                                    inv_n4, n, out_dtype=dtype).cpu()
+                want = i4.int4_masked_scores_batched_plain(p_c, wh_c[:q], wl_c[:q],
+                                                           corrs_c[:q], inv_c, n,
+                                                           out_dtype=dtype)
+                check(_same_bits(torch, got, want),
+                      f"int4_masked_scores_batched bit-equal q={q} {dtype} n={n} c={c} d={d}")
+                err["int4_scores_batched"] = max(err["int4_scores_batched"],
+                                                 _max_abs(torch, got, want))
+    results["int4_pack"][-1]["max_abs_err"] = err
+    del packed_t, inv_n4
 
 
 def _int2_case(torch, dev, g, c: int, d: int, results: dict):
@@ -998,6 +1199,7 @@ def _kernels_hamming1(torch, dev, card: dict, g, k: int, c: int, w: int, ties: b
         "c": c, "w": w, "ties": ties, "max_abs_err": _max_abs(torch, dk, dp),
         "ms": time_ms(torch, lambda: fs.hamming_topk_fused(q, db, k)),
         "cells_ms": time_ms(torch, lambda: fs._hamming1_cells_cuda(q, db)),
+        **_select_split(torch, *cells_k, k, False),
         "plain_ms": time_ms(torch, lambda: fs.hamming_topk_fused_plain(q, db, k)),
         "library_ms": None, "bound_ms": b, "bound_by": by,
     })
@@ -1085,6 +1287,7 @@ def _kernels_cosine_int8(torch, dev, card: dict, g, results: dict) -> None:
             "c": c, "d": d, "ties": ties, "max_abs_err": err,
             "ms": time_ms(torch, lambda: fs.cosine_int8_topk_fused(q, db, rn, k)),
             "cells_ms": time_ms(torch, lambda: fs._cosine_i8_cells_cuda(q, db, rn)),
+            **_select_split(torch, *fs._cosine_i8_cells_cuda(q, db, rn), k, True),
             "plain_ms": time_ms(torch, lambda: fs.cosine_int8_topk_fused_plain(q, db, rn, k)),
             "library_ms": time_ms(torch, lambda: fs.cosine_int8_topk_hybrid(q, db, rn, k)),
             "bound_ms": b, "bound_by": by,
@@ -1116,10 +1319,13 @@ def _kernels_cosine_int8(torch, dev, card: dict, g, results: dict) -> None:
         b, by = bound_ms(card, c * d + pool * 4 + d + k * 8, alu_ops=c * (d // 4 + 1),
                          f32_ops=pool)
         hybrid_ok = c % (fs.ROWS_PER_TILE * fs.LANES) == 0
+        dots_m, gidx_m = fs._cosine_i8_mxu_cells_cuda(q, db)
+        cand = dots_m / torch.clamp(rn[gidx_m.long()], min=1e-9)  # what #8 selects over
         results["cosine_i8_mxu"].append({
             "c": c, "d": d, "rpt": rpt, "ties": ties, "max_abs_err": err,
             "ms": time_ms(torch, lambda: fs.cosine_int8_topk_mxu(q, db, rn, k)),
             "cells_ms": time_ms(torch, lambda: fs._cosine_i8_mxu_cells_cuda(q, db)),
+            **_select_split(torch, cand[None], gidx_m[None], k, True),
             "plain_ms": time_ms(torch, lambda: fs.cosine_int8_topk_mxu_plain(q, db, rn, k)),
             "library_ms": time_ms(torch, lambda: fs.cosine_int8_topk_hybrid(q, db, rn, k))
             if hybrid_ok else None,
@@ -1132,7 +1338,7 @@ def _kernels_cosine_int8(torch, dev, card: dict, g, results: dict) -> None:
             except ValueError:
                 raised = True
             check(raised, "cosine_int8_topk_mxu raises on k above the candidate pool")
-        del db, rn
+        del db, rn, dots_m, gidx_m, cand
         torch.cuda.empty_cache()
 
 
@@ -1466,7 +1672,8 @@ def phase_served(torch, dev) -> dict:
         launches = read_counts()
         # ---- end of the main path
         check(all(launches[name] > 0 for name in ("scores_topk_fused_batched",
-                                                   "hamming_topk_fused_batched")),
+                                                   "hamming_topk_fused_batched",
+                                                   "select_topk")),
               f"every kernel of the f32 and Hamming paths launched: {launches}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         served = {
@@ -1501,7 +1708,10 @@ def _plain_quant_path(torch):
     swaps = {(knn, "int8_dots"): lambda qq, q8m: int8_dots_plain(torch, qq, q8m)}
     for mod in _kernel_modules():
         for name in mod.LAUNCHES:
-            swaps[(mod, name)] = getattr(mod, name + "_plain")
+            # select_topk has no wrapper of its own: it runs inside the fused
+            # wrappers, whose plain twins select with the stable sort
+            if hasattr(mod, name):
+                swaps[(mod, name)] = getattr(mod, name + "_plain")
     saved = {key: getattr(*key) for key in swaps}
     try:
         for (mod, name), fn in swaps.items():
@@ -1664,7 +1874,7 @@ def phase_int8(torch, dev) -> dict:
         # ---- end of the main path
         check(all(launches[name] > 0 for name in (
             "scores_topk_fused_batched", "scores_topk_fused",
-            "dots_norm_topk_fused", "dots_norm_topk_fused_batched")),
+            "dots_norm_topk_fused", "dots_norm_topk_fused_batched", "select_topk")),
             f"every kernel of the int8 path launched: {launches}")
         out = {
             "rows": vcache.n, "capacity": vcache.data.shape[0], "dim": DIM,
@@ -1754,6 +1964,7 @@ def phase_qbatch(torch, dev) -> dict:
               f"coalesced: {items} queries in {flushes} flushes")
         check(launches["dots_norm_topk_fused_batched"] > 0
               and launches["hamming_topk_fused_batched"] > 0
+              and launches["select_topk"] > 0
               and launches["dots_norm_topk_fused"] == 0,
               f"batched kernels only: {launches}")
         backend._qbatch_ms = 0.0  # the same queries, one at a time
@@ -1874,7 +2085,7 @@ def phase_int4(torch, dev) -> dict:
         # ---- end of the main path
         check(all(launches[name] > 0 for name in (
             "int4_dots", "int4_masked_scores", "int4_masked_scores_batched",
-            "scores_topk_fused", "scores_topk_fused_batched")),
+            "scores_topk_fused", "scores_topk_fused_batched", "select_topk")),
             f"every kernel of the int4 path launched: {launches}")
         mb = {name: batched_launches[name] - unbatched_launches[name]
               for name in launches}
@@ -1974,7 +2185,7 @@ def phase_int2(torch, dev) -> dict:
         # ---- end of the main path
         check(all(launches[name] > 0 for name in (
             "int2_masked_scores", "int2_masked_scores_batched", "int2_topq_scores",
-            "dots_norm_topk_fused_batched")),
+            "dots_norm_topk_fused_batched", "select_topk")),
             f"every kernel of the int2 path launched: {launches}")
         peak_device = torch.cuda.max_memory_allocated() / 2**30
 
@@ -2059,7 +2270,7 @@ def phase_sketch(torch, dev) -> dict:
         # ---- end of the main path
         check(all(launches[name] > 0 for name in (
             "asym_sketch_scores_tiled", "dots_norm_topk_fused",
-            "dots_norm_topk_fused_batched")),
+            "dots_norm_topk_fused_batched", "select_topk")),
             f"every kernel of the sketch path launched: {launches}")
         peak_device = torch.cuda.max_memory_allocated() / 2**30
 
@@ -2282,7 +2493,7 @@ def phase_sharded(torch, dev, n_served: int = SHARD_SERVED_ROWS) -> dict:
     check(all(launches_a[name] > 0 for name in (
         "hamming_topk_fused", "int4_masked_scores", "int4_dots",
         "int4_masked_scores_batched", "scores_topk_fused_batched", "int2_masked_scores",
-        "int2_masked_scores_batched", "asym_sketch_scores_tiled")),
+        "int2_masked_scores_batched", "asym_sketch_scores_tiled", "select_topk")),
         f"every per-shard kernel of the sharded functions launched: {launches_a}")
     direct = _time_sharded(torch, timings)
     del timings
@@ -2385,7 +2596,7 @@ BENCH_KEYS = ("query_hamming_p50_ms_10m_x64bit", "query_hamming_fused_p50_ms_10m
               "query_cosine_int8_mxu_p50_ms_10m_x64", "query_cosine_int8_fused_p50_ms_10m_x64")
 # the kernels those keys run: #4 (hybrid), #6 (fused Hamming), #7, #8
 BENCH_KERNELS = ("dots_norm_topk_fused", "hamming_topk_fused", "cosine_int8_topk_fused",
-                 "cosine_int8_topk_mxu")
+                 "cosine_int8_topk_mxu", "select_topk")
 
 
 def phase_bench(torch, dev) -> dict:
@@ -2459,13 +2670,14 @@ def _findings_line(kernels: dict, served: list) -> dict:
     source = {scan: "fused_scan.cu", int4: "int4_scan.cu", int2: "int2_scan.cu",
               knn: "sketch_scan.cu"}
     int8_src = "int8_scan.cu"  # #7 and #8, pallas_scan.py's int8-cosine scans
+    src = {"cosine_i8": int8_src, "cosine_i8_mxu": int8_src, "select": "select.cu"}
     rows = (
         ("scores_topk_fused_batched", scan, 487, "scores",
          pick(kernels["scores"], q=32, dtype="float32", ties=False), {"q": 32}),
         ("hamming_topk_fused_batched", scan, 163, "hamming",
          pick(kernels["hamming"], q=32, w=2, ties=False), {"q": 32, "w": 2}),
         ("scores_topk_fused", scan, 314, "scores1",
-         pick(kernels["scores1"], c=INT8_ROWS, largest=True, ties=False), {"q": 1}),
+         pick(kernels["scores1"], c=INT8_ROWS, k=2048), {"q": 1, "k": 2048}),
         ("dots_norm_topk_fused", scan, 261, "dots_norm",
          pick(kernels["dots_norm"], c=INT8_ROWS, ties=False), {"q": 1}),
         ("dots_norm_topk_fused_batched", scan, 422, "dots_norm_batched",
@@ -2494,16 +2706,20 @@ def _findings_line(kernels: dict, served: list) -> dict:
         ("cosine_int8_topk_mxu", scan, 718, "cosine_i8_mxu",
          pick(kernels["cosine_i8_mxu"], c=BENCH_X64_ROWS, d=64, ties=False),
          {"q": 1, "d": 64, "rpt": 1024}),
+        # the lax.top_k every scan runs after its pallas_call (here #3's)
+        ("select_topk", scan, 309, "select",
+         pick(kernels["select"], n=16384, k=2048), {"q": 1, "k": 2048}),
     )
     return {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "ucfp_tpu_torch/csrc/" + (int8_src if key.startswith("cosine_i8")
-                                             else source[path]),
+         "source": "ucfp_tpu_torch/csrc/" + src.get(key, source[path]),
          "replaces": f"ucfp_tpu/ops/{path}:{line}",
          "launches": launches.get(name),
          "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
          **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         "shape": {**shape, "c": row["c"]}}
+         # the fused scans' two halves: cells kernel and selection
+         **{f: row[f] for f in ("cells_ms", "select_ms", "device_ms") if f in row},
+         "shape": {**shape, **({"c": row["c"]} if "c" in row else {"n": row["n"]})}}
         for name, path, line, key, row, shape in rows
     ]}
 

@@ -4,21 +4,28 @@
 // exactly: the catalog is viewed as [rows, 128] lanes, a tile is a run of
 // rows, and each (tile, lane) cell keeps its best row -- ties go to the
 // lowest row (the reference's _lane_argbest / _qblock_argbest). The final
-// top-k over the tiles x 128 candidates stays outside the kernels
-// (ops/fused_scan.py), as lax.top_k sits outside the Pallas call in the
+// top-k over the tiles x 128 candidates is a kernel of its own
+// (csrc/select.cu), as lax.top_k sits outside the Pallas call in the
 // reference. The TPU block shapes ([R, W, 128] host transpose, SUB=8 output
 // padding, query padding) were Mosaic workarounds and are not copied.
 //
 // ucfp_scores_cells replaces pallas_scan.scores_topk_fused_batched
-// (_scores_kernel_batched). Bound: device memory -- it reads each score
-// once (Q*C*4 bytes for f32, half for bf16) and does one compare per
-// element. Design: one block per (256-row tile, query); 128 lanes x 8 row
-// groups of 32 rows, so a warp reads 128 B of consecutive scores per row
-// (coalesced) and each SM has many loads in flight; the 8 partial winners
-// of a lane merge through shared memory in row order, so the lowest row
-// keeps winning ties. At Q=1 a 2^20-row catalog gives only 32 blocks for
-// the 132 SMs; that under-fill is left for a later change.
-//
+// (_scores_kernel_batched) and, at Q = 1, pallas_scan.scores_topk_fused
+// (_scores_kernel). Bound: device memory -- it reads each score once
+// (Q*C*4 bytes for f32, half for bf16, 16 MB at C = 2^22) and does one
+// compare per element; at one query that is 5 us of bytes, so what the
+// kernel must avoid is latency: a 2^22-row catalog is only 128 tiles for
+// the 132 SMs. Design: one block of 512 threads per (256-row tile,
+// query); each thread makes 16-byte loads covering 4 (f32) or 8 (bf16)
+// adjacent lanes, so a warp reads 512 contiguous bytes per step, and
+// walks every 16th (f32) or 32nd (bf16) row of the tile with all its
+// loads issued before the compares: 128 KB in flight per block, enough
+// to cover the memory latency with one block per SM. Each thread keeps
+// the first row of its best value per lane (strict '>', rows ascending);
+// the row slices' winners meet in shared memory, where one thread per
+// lane takes the best value and, among equal values, the lowest row, and
+// writes that row's own element (a -0.0 keeps its sign bit).
+
 // ucfp_hamming_cells replaces pallas_scan.hamming_topk_fused_batched
 // (_hamming_kernel_batched). Bound: the popcount issue rate once a block
 // holds more than a few queries. Compute capability 9.0 issues __popc at
@@ -87,47 +94,87 @@ constexpr float NORM_FLOOR = 1e-9f;   // jnp.maximum(row_norm, 1e-9)
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+constexpr int CELL_THREADS = 512;  // scores cells: threads per (tile, query) block
+
+__device__ __forceinline__ void unpack16(const uint4& w, float (&f)[4]) {
+  f[0] = __uint_as_float(w.x);
+  f[1] = __uint_as_float(w.y);
+  f[2] = __uint_as_float(w.z);
+  f[3] = __uint_as_float(w.w);
+}
+
+__device__ __forceinline__ void unpack16(const uint4& w, float (&f)[8]) {
+  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 lane 2i in the low half-word
+    f[2 * i] = __uint_as_float(x[i] << 16);
+    f[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
+  }
+}
+
 template <typename T, bool LARGEST>
-__global__ void __launch_bounds__(LANES * SCORE_GROUPS)
+__global__ void __launch_bounds__(CELL_THREADS)
 scores_cells_kernel(const T* __restrict__ scores, long long c, int tiles,
                     T* __restrict__ best_out, int* __restrict__ idx_out) {
-  const int lane = threadIdx.x;
-  const int group = threadIdx.y;
+  constexpr int V = 16 / sizeof(T);           // lanes per 16-byte load
+  constexpr int TPR = LANES / V;              // threads per row
+  constexpr int RSTEP = CELL_THREADS / TPR;   // rows per step
+  constexpr int STEPS = SCORE_TILE_ROWS / RSTEP;
+  const int tid = threadIdx.x;
+  const int rs = tid / TPR;  // row slice: rows rs, rs + RSTEP, ...
+  const int l0 = (tid % TPR) * V;
   const int t = blockIdx.x;
   const long long q = blockIdx.y;
-  const T* tile = scores + q * c + (long long)t * SCORE_TILE_ROWS * LANES + lane;
-  const T* p = tile + (long long)group * SCORE_GROUP_ROWS * LANES;
+  const T* tile = scores + q * c + (long long)t * SCORE_TILE_ROWS * LANES;
 
-  float best = to_f32(p[0]);
-  int best_r = 0;
-#pragma unroll 8
-  for (int r = 1; r < SCORE_GROUP_ROWS; ++r) {
-    const float v = to_f32(p[(long long)r * LANES]);
-    if (LARGEST ? (v > best) : (v < best)) {
-      best = v;
-      best_r = r;
+  uint4 raw[STEPS];
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st)
+    raw[st] = __ldg(reinterpret_cast<const uint4*>(tile + (st * RSTEP + rs) * LANES + l0));
+  float best[V];
+  int best_r[V];
+  unpack16(raw[0], best);
+#pragma unroll
+  for (int j = 0; j < V; ++j) best_r[j] = rs;
+#pragma unroll
+  for (int st = 1; st < STEPS; ++st) {
+    float f[V];
+    unpack16(raw[st], f);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (LARGEST ? (f[j] > best[j]) : (f[j] < best[j])) {
+        best[j] = f[j];
+        best_r[j] = st * RSTEP + rs;
+      }
     }
   }
 
-  __shared__ float s_val[SCORE_GROUPS][LANES];
-  __shared__ int s_row[SCORE_GROUPS][LANES];
-  s_val[group][lane] = best;
-  s_row[group][lane] = group * SCORE_GROUP_ROWS + best_r;
+  __shared__ float s_val[RSTEP][LANES];
+  __shared__ int s_row[RSTEP][LANES];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    s_val[rs][l0 + j] = best[j];
+    s_row[rs][l0 + j] = best_r[j];
+  }
   __syncthreads();
-  if (group != 0) return;
-  // groups hold ascending row ranges: a strict comparison keeps the
-  // earliest group's (lowest) row on ties
-  for (int g = 1; g < SCORE_GROUPS; ++g) {
+  if (tid >= LANES) return;
+  const int lane = tid;
+  float b = s_val[0][lane];
+  int br = s_row[0][lane];
+  for (int g = 1; g < RSTEP; ++g) {
     const float v = s_val[g][lane];
-    if (LARGEST ? (v > best) : (v < best)) {
-      best = v;
-      best_r = s_row[g][lane];
+    const int r = s_row[g][lane];
+    if (LARGEST ? (v > b) : (v < b)) {
+      b = v;
+      br = r;
+    } else if (v == b && r < br) {
+      br = r;
     }
   }
   const long long out = (q * tiles + t) * LANES + lane;
   // the winning row's own value, in the input type
-  best_out[out] = tile[(long long)best_r * LANES];
-  idx_out[out] = (t * SCORE_TILE_ROWS + best_r) * LANES + lane;
+  best_out[out] = tile[(long long)br * LANES + lane];
+  idx_out[out] = (t * SCORE_TILE_ROWS + br) * LANES + lane;
 }
 
 __global__ void __launch_bounds__(LANES * SCORE_GROUPS)
@@ -342,24 +389,45 @@ extern "C" int ucfp_scores_cells(const void* scores, int is_bf16, int largest, i
     return (int)cudaErrorInvalidValue;
   const int tiles = (int)(c / (SCORE_TILE_ROWS * LANES));
   const dim3 grid(tiles, q);
-  const dim3 block(LANES, SCORE_GROUPS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     const auto* in = static_cast<const __nv_bfloat16*>(scores);
     auto* out = static_cast<__nv_bfloat16*>(best);
     if (largest)
-      scores_cells_kernel<__nv_bfloat16, true><<<grid, block, 0, s>>>(in, c, tiles, out, idx);
+      scores_cells_kernel<__nv_bfloat16, true><<<grid, CELL_THREADS, 0, s>>>(in, c, tiles, out,
+                                                                           idx);
     else
-      scores_cells_kernel<__nv_bfloat16, false><<<grid, block, 0, s>>>(in, c, tiles, out, idx);
+      scores_cells_kernel<__nv_bfloat16, false><<<grid, CELL_THREADS, 0, s>>>(in, c, tiles, out,
+                                                                            idx);
   } else {
     const auto* in = static_cast<const float*>(scores);
     auto* out = static_cast<float*>(best);
     if (largest)
-      scores_cells_kernel<float, true><<<grid, block, 0, s>>>(in, c, tiles, out, idx);
+      scores_cells_kernel<float, true><<<grid, CELL_THREADS, 0, s>>>(in, c, tiles, out, idx);
     else
-      scores_cells_kernel<float, false><<<grid, block, 0, s>>>(in, c, tiles, out, idx);
+      scores_cells_kernel<float, false><<<grid, CELL_THREADS, 0, s>>>(in, c, tiles, out, idx);
   }
   return (int)cudaGetLastError();
+}
+
+// csrc/select.cu: the top-k selection over [q, n] candidates
+extern "C" int ucfp_select_topk(const void* vals, const int* gidx, int kind, int q, int n, int k,
+                                int largest, void* out_val, int* out_idx, void* scratch,
+                                void* stream);
+
+// #1 / #3 whole: the cells, then the selection over them, launched back to
+// back from one host call (the wrapper's host time is most of a small
+// scan's time); best / idx hold the cells, scratch as ucfp_select_topk's
+extern "C" int ucfp_scores_topk(const void* scores, int is_bf16, int largest, int q,
+                                long long c, int k, void* best, int* idx, void* out_val,
+                                int* out_idx, void* scratch, void* stream) {
+  const int rc = ucfp_scores_cells(scores, is_bf16, largest, q, c, best, idx, stream);
+  if (rc != 0) return rc;
+  const long long n = c / SCORE_TILE_ROWS;  // (tile, lane) cells per query
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the selection's value kinds: 0 float32, 1 bfloat16
+  return ucfp_select_topk(best, idx, is_bf16 ? 1 : 0, q, (int)n, k, largest, out_val, out_idx,
+                          scratch, stream);
 }
 
 extern "C" int ucfp_hamming_cells(const uint32_t* queries, int q, int w, const uint32_t* db,

@@ -35,11 +35,17 @@ with no kernel of its own.
 
 The final selection runs over the flat candidate array in the order
 t*128 + lane (the reference's moveaxis/reshape order, NOT global row
-order) with a stable sort, so ties keep the lower position exactly as
-lax.top_k does. Beside each kernel sits its plain PyTorch version
-(`*_plain`): the CPU path, and the yardstick the card's kernel is held
-bit-equal to. A wrapper takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+order) and keeps the first k of a stable sort, so ties keep the lower
+position exactly as lax.top_k does: on the card a kernel of its own
+(select_topk, csrc/select.cu: radix select of a unique composite key,
+then a sort of the k winners; #1 and #3 launch it with their cells
+kernel from one host call), on the CPU the stable sort itself. Every
+`*_plain` wrapper selects with the stable sort on any device, so the
+card's selection is held against it too. Beside each kernel sits its
+plain PyTorch version (`*_plain`): the CPU path, and the yardstick the
+card's kernel is held bit-equal to. A wrapper takes the plain version
+only for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ NEG_INF = float("-inf")
 LAUNCHES = {"scores_topk_fused_batched": 0, "hamming_topk_fused_batched": 0,
             "scores_topk_fused": 0, "dots_norm_topk_fused": 0,
             "dots_norm_topk_fused_batched": 0, "hamming_topk_fused": 0,
-            "cosine_int8_topk_fused": 0, "cosine_int8_topk_mxu": 0}
+            "cosine_int8_topk_fused": 0, "cosine_int8_topk_mxu": 0,
+            "select_topk": 0}
 _count_lock = threading.Lock()
 
 
@@ -108,6 +115,12 @@ def _kernels():
         lib.ucfp_cosine_i8_cells.argtypes = [p, i, p, ll, p, p, p, p]
         lib.ucfp_cosine_i8_mxu_cells.restype = i
         lib.ucfp_cosine_i8_mxu_cells.argtypes = [p, i, p, ll, i, p, p, p]
+        lib.ucfp_select_topk.restype = i
+        lib.ucfp_select_topk.argtypes = [p, p, i, i, i, i, i, p, p, p, p]
+        lib.ucfp_select_scratch.restype = ll
+        lib.ucfp_select_scratch.argtypes = [i, i]
+        lib.ucfp_scores_topk.restype = i
+        lib.ucfp_scores_topk.argtypes = [p, i, i, i, ll, i, p, p, p, p, p, p]
         _lib = lib
     return _lib
 
@@ -118,7 +131,21 @@ def _check(rc: int, name: str) -> None:
 
 
 def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device, as the raw handle the
+    kernels launch on (what torch.cuda.current_stream(dev).cuda_stream
+    returns, without building a Stream object: a wrapper's host time is
+    most of a small scan's time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _pair_out(q: int, n: int, dtype, device):
+    """[q, n] values in dtype and [q, n] int32 indices, from one
+    allocation when the values take 4 bytes."""
+    if dtype == torch.bfloat16:
+        return (torch.empty((q, n), dtype=dtype, device=device),
+                torch.empty((q, n), dtype=torch.int32, device=device))
+    buf = torch.empty((2, q, n), dtype=torch.int32, device=device)
+    return buf[0].view(dtype), buf[1]
 
 
 # ---------------------------------------------------------------------------
@@ -150,9 +177,9 @@ def _scores_cells_cuda(scores: torch.Tensor, largest: bool,
     q, c = scores.shape
     if not scores.is_contiguous():
         raise ValueError("scores must be contiguous")
+    scores = _aligned16(scores)  # 16-byte loads
     tiles = c // (ROWS_PER_TILE * LANES)
-    best = torch.empty((q, tiles * LANES), dtype=scores.dtype, device=scores.device)
-    gidx = torch.empty((q, tiles * LANES), dtype=torch.int32, device=scores.device)
+    best, gidx = _pair_out(q, tiles * LANES, scores.dtype, scores.device)
     rc = _kernels().ucfp_scores_cells(
         scores.data_ptr(), int(scores.dtype == torch.bfloat16), int(largest),
         q, c, best.data_ptr(), gidx.data_ptr(), _stream_ptr(scores),
@@ -160,6 +187,44 @@ def _scores_cells_cuda(scores: torch.Tensor, largest: bool,
     _check(rc, name)
     _count(name)
     return best, gidx
+
+
+def _scores_topk_cuda(scores: torch.Tensor, k: int, largest: bool, name: str):
+    """#1 / #3 whole: the cells kernel and the selection kernel over its
+    cells, launched from one host call (ucfp_scores_topk) -> values and
+    int32 indices, [Q, k] (or [k] for one query's [C] scores). At one
+    query these scans are host-bound, so the host work is kept short: one
+    host call instead of two (the cells, then _select), and for float32
+    the cells and the outputs share one allocation. PERF.md section 6 has
+    the A/B against two calls and two allocations on an H100."""
+    if not scores.is_contiguous():
+        raise ValueError("scores must be contiguous")
+    scores = _aligned16(scores)  # 16-byte loads
+    c = scores.shape[-1]
+    q = scores.numel() // c
+    n = c // ROWS_PER_TILE  # (tile, lane) cells per query
+    scratch = _select_scratch(q, n, k, scores.device)
+    shape = (*scores.shape[:-1], k)
+    dev = scores.device
+    if scores.dtype == torch.bfloat16:
+        best, gidx = _pair_out(q, n, scores.dtype, dev)  # kept alive to the launch
+        cells = (best.data_ptr(), gidx.data_ptr())
+        out_v = torch.empty(shape, dtype=scores.dtype, device=dev)
+        out_i = torch.empty(shape, dtype=torch.int32, device=dev)
+    else:  # cells (values, indices), then the outputs (values, indices)
+        ws = torch.empty(2 * q * (n + k), dtype=torch.int32, device=dev)
+        cells = (ws.data_ptr(), ws.data_ptr() + 4 * q * n)
+        out = ws[2 * q * n:].view(2, *shape)
+        out_v, out_i = out[0].view(scores.dtype), out[1]
+    rc = _kernels().ucfp_scores_topk(
+        scores.data_ptr(), int(scores.dtype == torch.bfloat16), int(largest), q, c, k,
+        *cells, out_v.data_ptr(), out_i.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream_ptr(scores),
+    )
+    _check(rc, name)
+    _count(name)
+    _count("select_topk")
+    return out_v, out_i
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -392,7 +457,7 @@ def _cosine_i8_mxu_cells_cuda(q8: torch.Tensor, db8: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _select(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
+def _select_plain(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
     """First k of a stable sort: ties keep the lower candidate position,
     as lax.top_k does (torch.topk promises no order for ties)."""
     if k > vals.shape[1]:
@@ -400,6 +465,50 @@ def _select(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
     key = vals.float() if vals.dtype == torch.bfloat16 else vals
     order = torch.sort(key, dim=1, descending=largest, stable=True).indices[:, :k]
     return torch.gather(vals, 1, order), torch.gather(gidx, 1, order)
+
+
+# value kinds of ucfp_select_topk
+_SELECT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+def _select_scratch(q: int, n: int, k: int, device):
+    """For the selection kernel's top k of n candidates of q queries: the
+    check of k, and the device-memory scratch csrc/select.cu asks for
+    (None while k fits its shared-memory sort)."""
+    if k > n:
+        raise ValueError(f"k={k} exceeds the {n} candidates")
+    keys = _kernels().ucfp_select_scratch(q, k)
+    return torch.empty(keys, dtype=torch.int64, device=device) if keys else None
+
+
+def _select_cuda(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
+    q, n = vals.shape
+    if vals.dtype not in _SELECT_KINDS or gidx.dtype != torch.int32:
+        raise ValueError(f"select_topk takes float32, bfloat16 or int32 values and "
+                         f"int32 indices, got {vals.dtype} and {gidx.dtype}")
+    if gidx.shape != vals.shape or gidx.device != vals.device:
+        raise ValueError("values and indices must share shape and device")
+    vals, gidx = vals.contiguous(), gidx.contiguous()
+    scratch = _select_scratch(q, n, k, vals.device)
+    out_v, out_i = _pair_out(q, k, vals.dtype, vals.device)
+    if q == 0 or k == 0:
+        return out_v, out_i
+    rc = _kernels().ucfp_select_topk(
+        vals.data_ptr(), gidx.data_ptr(), _SELECT_KINDS[vals.dtype], q, n, k,
+        int(largest), out_v.data_ptr(), out_i.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream_ptr(vals),
+    )
+    _check(rc, "select_topk")
+    _count("select_topk")
+    return out_v, out_i
+
+
+def _select(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
+    """_select_plain's answer: the stable sort on the CPU, the selection
+    kernel (csrc/select.cu) for CUDA tensors."""
+    if vals.device.type == "cpu":
+        return _select_plain(vals, gidx, k, largest)
+    return _select_cuda(vals, gidx, k, largest)
 
 
 def _check_tiles(name: str, c: int) -> None:
@@ -428,11 +537,9 @@ def scores_topk_fused_batched(scores: torch.Tensor, k: int,
     approx=True selects exactly: the reference's approx_max_k returns the
     exact top-k on the CPU, and the port keeps that answer everywhere."""
     _check_scores(scores, largest, approx)
-    if scores.device.type == "cpu":
-        vals, gidx = _scores_cells_plain(scores, largest)
-    else:
-        vals, gidx = _scores_cells_cuda(scores, largest)
-    return _select(vals, gidx, k, largest)
+    if scores.device.type != "cpu":
+        return _scores_topk_cuda(scores, k, largest, "scores_topk_fused_batched")
+    return _select_plain(*_scores_cells_plain(scores, largest), k, largest)
 
 
 def scores_topk_fused_batched_plain(scores: torch.Tensor, k: int,
@@ -440,7 +547,7 @@ def scores_topk_fused_batched_plain(scores: torch.Tensor, k: int,
     """Plain PyTorch version of scores_topk_fused_batched on any device."""
     _check_scores(scores, largest, approx)
     vals, gidx = _scores_cells_plain(scores, largest)
-    return _select(vals, gidx, k, largest)
+    return _select_plain(vals, gidx, k, largest)
 
 
 def _check_hamming(queries: torch.Tensor, db: torch.Tensor,
@@ -481,7 +588,7 @@ def hamming_topk_fused_batched_plain(queries: torch.Tensor, db: torch.Tensor,
     """Plain PyTorch version of hamming_topk_fused_batched on any device."""
     _check_hamming(queries, db, valid)
     dist, gidx = _hamming_cells_plain(queries, db, valid)
-    return _select(dist, gidx, k, largest=False)
+    return _select_plain(dist, gidx, k, largest=False)
 
 
 def _check_hamming1(query: torch.Tensor, db: torch.Tensor) -> None:
@@ -516,7 +623,7 @@ def hamming_topk_fused(query: torch.Tensor, db: torch.Tensor, k: int):
 def hamming_topk_fused_plain(query: torch.Tensor, db: torch.Tensor, k: int):
     """Plain PyTorch version of hamming_topk_fused on any device."""
     _check_hamming1(query, db)
-    d, i = _select(*_hamming1_cells_plain(query, db), k, largest=False)
+    d, i = _select_plain(*_hamming1_cells_plain(query, db), k, largest=False)
     return d[0], i[0]
 
 
@@ -533,19 +640,16 @@ def scores_topk_fused(scores: torch.Tensor, k: int, largest: bool = True):
     """scores [C] f32, C % 32768 == 0 -> ([k] f32 values, [k] int32
     catalog indices), best first (smallest first for largest=False)."""
     _check_scores_1d(scores)
-    s = scores[None, :]
-    if scores.device.type == "cpu":
-        vals, gidx = _scores_cells_plain(s, largest)
-    else:
-        vals, gidx = _scores_cells_cuda(s, largest, "scores_topk_fused")
-    v, i = _select(vals, gidx, k, largest)
+    if scores.device.type != "cpu":
+        return _scores_topk_cuda(scores, k, largest, "scores_topk_fused")
+    v, i = _select_plain(*_scores_cells_plain(scores[None, :], largest), k, largest)
     return v[0], i[0]
 
 
 def scores_topk_fused_plain(scores: torch.Tensor, k: int, largest: bool = True):
     """Plain PyTorch version of scores_topk_fused on any device."""
     _check_scores_1d(scores)
-    v, i = _select(*_scores_cells_plain(scores[None, :], largest), k, largest)
+    v, i = _select_plain(*_scores_cells_plain(scores[None, :], largest), k, largest)
     return v[0], i[0]
 
 
@@ -565,7 +669,10 @@ def _check_dots_norm(name: str, dots: torch.Tensor, row_norm: torch.Tensor,
 def _dots_norm_topk(name: str, dots, row_norm, n_valid, inv_q, k: int,
                     plain: bool):
     _check_dots_norm(name, dots, row_norm, inv_q)
-    if plain or dots.device.type == "cpu":
+    if plain:
+        vals, gidx = _dots_norm_cells_plain(dots, row_norm, int(n_valid), inv_q)
+        return _select_plain(vals, gidx, k, largest=True)
+    if dots.device.type == "cpu":
         vals, gidx = _dots_norm_cells_plain(dots, row_norm, int(n_valid), inv_q)
     else:
         vals, gidx = _dots_norm_cells_cuda(dots, row_norm, int(n_valid), inv_q, name)
@@ -648,7 +755,7 @@ def _cosine_i8_fused(q8, db8, row_norm, k: int, plain: bool):
         vals, gidx = _cosine_i8_cells_plain(q8, db8, row_norm)
     else:
         vals, gidx = _cosine_i8_cells_cuda(q8, db8, row_norm)
-    v, i = _select(vals, gidx, k, largest=True)
+    v, i = (_select_plain if plain else _select)(vals, gidx, k, largest=True)
     return v[0], i[0]
 
 
@@ -685,7 +792,7 @@ def _cosine_i8_mxu(q8, db8, row_norm, k: int, plain: bool):
         dots, gidx = _cosine_i8_mxu_cells_cuda(q8, db8)
     # only the candidates are normalized (pallas_scan.py:767)
     cand = dots / torch.clamp(row_norm[gidx.long()], min=1e-9)
-    v, i = _select(cand[None], gidx[None], k, largest=True)
+    v, i = (_select_plain if plain else _select)(cand[None], gidx[None], k, largest=True)
     return v[0], i[0]
 
 

@@ -16,7 +16,13 @@ Kernels (CUDA C++ for sm_90a, csrc/int4_scan.cu):
   * int4_masked_scores — one query: (dot - corr) * inv_n4 as float32, -inf
     where row >= n or inv_n4 == 0;
   * int4_masked_scores_batched — the same for a [Q, D/2] block with one
-    corr per query, float32 or bfloat16 out (round to nearest even).
+    corr per query, float32 or bfloat16 out (round to nearest even), on
+    the int8 tensor cores (mma.sync s8): each catalog row is the K = D
+    vector of exact signed bytes [16*hi | 16*(lo_b - 8)] and each query
+    [qh | ql], so one s32 sum holds 16*(dot - 8*sum(ql)); int4_dots at
+    nq > 1 runs the same kernel. `mma_operands` builds those operands in
+    the kernel's K order, and `mma_scores_plain` multiplies them on any
+    device, so the CPU tests hold the identity the kernel relies on.
 
 Beside each kernel sits its plain PyTorch version (`*_plain`): the CPU
 path, and the yardstick the card's kernel is held bit-equal to. A wrapper
@@ -37,6 +43,7 @@ from .fused_scan import _check, _stream_ptr
 NEG_INF = float("-inf")
 ROW_ALIGN = 128  # the kernels take whole 128-row blocks of the catalog
 MAX_DP = 16384  # the widest D/2 the kernels take (csrc/int4_scan.cu)
+MMA_KSTEP_PAIRS = 16  # dim pairs per k32 step of the batched kernel
 
 # the plain versions' float32 products on CUDA must not round to TF32
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -114,6 +121,50 @@ def _masked_plain(packed_t, wh, wl, corrs, inv_n4, n_valid: int, out_dtype):
     return torch.where(ok[None, :], sc, NEG_INF).to(out_dtype)
 
 
+def mma_operands(packed_t: torch.Tensor, wh: torch.Tensor, wl: torch.Tensor):
+    """The s8 operands of the batched kernel's tensor-core product, in its
+    K order: ([C, K] int8 catalog rows, [N, K] int8 queries), K = 32 *
+    ceil(D/2 / 16), N = 8 * ceil(nq / 8). K step s holds 16*hi (the byte &
+    0xF0) of dim pairs 16s..16s+15, then 16*(lo_b - 8) (((byte << 4) &
+    0xF0) ^ 0x80) of the same pairs; the queries hold qh and ql there. Past
+    D/2 the catalog side is a zero byte's unpack (0 and -128, as the
+    kernel's shared memory may hold anything there) and the query side 0;
+    queries past nq are 0."""
+    dp, c = packed_t.shape
+    nq = wh.shape[0]
+    ks = -(-dp // MMA_KSTEP_PAIRS)
+    padded = torch.zeros((ks * MMA_KSTEP_PAIRS, c), dtype=torch.int8, device=packed_t.device)
+    padded[:dp] = packed_t
+    u = padded.view(torch.uint8).to(torch.int16)
+    hi16 = (u & 0xF0).to(torch.uint8).view(torch.int8)
+    lo16 = (((u << 4) & 0xF0) ^ 0x80).to(torch.uint8).view(torch.int8)
+    a = torch.stack([hi16.view(ks, MMA_KSTEP_PAIRS, c), lo16.view(ks, MMA_KSTEP_PAIRS, c)],
+                    dim=1).reshape(2 * ks * MMA_KSTEP_PAIRS, c).T.contiguous()
+    qw = torch.zeros((2, -(-nq // 8) * 8, ks * MMA_KSTEP_PAIRS), dtype=torch.int8,
+                     device=wh.device)
+    qw[0, :nq, :dp] = wh
+    qw[1, :nq, :dp] = wl
+    b = qw.view(2, -1, ks, MMA_KSTEP_PAIRS).permute(1, 2, 0, 3).reshape(qw.shape[1], -1)
+    return a, b
+
+
+def mma_scores_plain(packed_t, wh, wl, bias, inv_n4, n_valid: int, out_dtype):
+    """The batched kernel's arithmetic on any device: the [C, K] x [K, N]
+    product of mma_operands in int64 (the kernel's s32 sums never exceed
+    2^24), then its epilogue: >> 4, + bias (8*sum(ql), less corr for the
+    scores), and for scores the one float32 product by inv_n4 with -inf
+    past n_valid and where inv_n4 == 0, rounded to out_dtype. out_dtype
+    torch.int32 gives the dots. -> [nq, C]."""
+    a, b = mma_operands(packed_t, wh, wl)
+    acc = (a.to(torch.int64) @ b.to(torch.int64).T)[:, :wh.shape[0]].T  # [nq, C]
+    v = ((acc >> 4) + bias.to(torch.int64)[:, None]).to(torch.int32)
+    if out_dtype == torch.int32:
+        return v
+    c = packed_t.shape[1]
+    ok = (torch.arange(c, device=v.device) < n_valid) & (inv_n4 > 0.0)
+    return torch.where(ok[None, :], v.float() * inv_n4[None, :], NEG_INF).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # the kernel launch
 # ---------------------------------------------------------------------------
@@ -139,8 +190,9 @@ def _launch(name: str, packed_t, wh, wl, bias, inv_n4, n_valid: int,
             raise ValueError(f"{name}: {arg} must be on {dev}")
     if dp > MAX_DP:
         raise ValueError(f"{name}: the kernel takes D/2 <= {MAX_DP}, got {dp}")
-    if not packed_t.is_contiguous() or packed_t.data_ptr() % 4:
-        raise ValueError(f"{name}: packed_t must be contiguous and 4-byte aligned")
+    align = 4 if nq == 1 else 16  # word loads; cp.async of 16 bytes
+    if not packed_t.is_contiguous() or packed_t.data_ptr() % align:
+        raise ValueError(f"{name}: packed_t must be contiguous and {align}-byte aligned")
     if inv_n4 is not None and (not inv_n4.is_contiguous() or inv_n4.data_ptr() % 16):
         raise ValueError(f"{name}: inv_n4 must be contiguous and 16-byte aligned")
     qh, ql = _query_words(wh), _query_words(wl)
@@ -273,8 +325,8 @@ def int4_masked_scores_batched(packed_t: torch.Tensor, wh: torch.Tensor,
                                out_dtype=torch.float32) -> torch.Tensor:
     """Batched masked prefilter scores: wh / wl [Q, D/2] int8, corrs [Q]
     int32 -> [Q, C] in out_dtype (float32 or bfloat16, rounded to nearest
-    even from the float32 score). The kernel reads each catalog tile once
-    for up to 64 queries."""
+    even from the float32 score). The kernel (int8 tensor cores) reads
+    each catalog tile once for up to 64 queries."""
     return _masked_batched(packed_t, wh, wl, corrs, inv_n4, n_valid, out_dtype,
                            plain=False)
 
