@@ -11,7 +11,8 @@ each:
   2. build        csrc/*.cu for sm_90a, and the build time
   3. kernels      every CUDA kernel of the served paths against its plain
                   PyTorch version on the card, at the served shapes and at
-                  tie-heavy shapes: values and indices bit-equal. Kernel,
+                  tie-heavy shapes: values and indices bit-equal (#4 / #5
+                  at Q = 1, 5, 32 and 64, ties, n inside a tile). Kernel,
                   plain and library times (CUDA events, median of 25 runs)
                   and the bound for the same work; the int8 product
                   (torch._int_mm) held exact, its shape rules and its time;
@@ -102,7 +103,9 @@ the phase's path runs must rise between a reset just before the phase's
 requests and a read just after (in phase 12, around the bench's run).
 Then one JSON line with every kernel's numbers (launches summed over
 phases 5-12), and last the line {"ok": true, "device": {...}}.
---phases picks a subset (default: all twelve).
+--phases picks a subset (default: all twelve). One more phase, ab, is
+in no default run: the times of #13 and #4 / #5 alone, with no check,
+for an A/B against a parent's checkout (phase_ab).
 """
 
 import argparse
@@ -467,6 +470,7 @@ def phase_kernels(torch, dev, card: dict) -> dict:
         _kernels_int2(torch, dev, card, g, c, DIM, results)
     # a multiple of 4 that is not a multiple of 16: a partial last group
     _kernels_int2(torch, dev, card, g, INT2_ROWS, DIM + 4, results)
+    _kernels_int2_wide(torch, dev, g, results)
     results.update(sketch_build=[], sketch=[])
     for c in SKETCH_KERNEL_ROWS:
         _kernels_sketch(torch, dev, card, g, c, results)
@@ -549,11 +553,12 @@ def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> N
         return bound_ms(card, q * c * 4 + c * 4 + q * k * 8, alu_ops=q * c,
                         f32_ops=2 * q * c)
 
-    # kernel #4: one query; n at C, below the last 1024 rows, mid-tile
+    ns = (c, c - 1024, c - 3 * tile - 12345)  # n at C, below the last 1024 rows, mid-tile
+    # kernel #4: one query
     for ties in (False, True):
         dots, rn, inv_q = dots_case(1, ties)
         d1 = dots[0]
-        for n in (c, c - 1024, c - 3 * tile - 12345):
+        for n in ns:
             cells_k = fs._dots_norm_cells_cuda(dots, rn, n, inv_q, "dots_norm_topk_fused")
             torch.cuda.synchronize()
             cells_p = fs._dots_norm_cells_plain(dots, rn, n, inv_q)
@@ -570,6 +575,8 @@ def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> N
         results["dots_norm"].append({
             "q": 1, "c": c, "ties": ties, "max_abs_err": _max_abs(torch, vk, vp),
             "ms": time_ms(torch, lambda: fs.dots_norm_topk_fused(d1, rn, c, inv_q[0], k)),
+            "device_ms": device_ms(torch, lambda: fs.dots_norm_topk_fused(
+                d1, rn, c, inv_q[0], k)),
             "cells_ms": time_ms(torch, lambda: fs._dots_norm_cells_cuda(
                 dots, rn, c, inv_q, "dots_norm_topk_fused")),
             **_select_split(torch, *cells_k, k, True),
@@ -579,37 +586,50 @@ def _kernels_int8(torch, dev, card: dict, g, k: int, c: int, results: dict) -> N
         })
         del dots, d1
 
-    # kernel #5: query blocks of 1 and 32 (four blocks of QSEL)
-    for q, ties in ((1, False), (32, False), (32, True)):
-        dots, rn, inv_q = dots_case(q, ties)
-        for n in (c, c - 1024):
-            cells_k = fs._dots_norm_cells_cuda(dots, rn, n, inv_q,
+    # kernel #5: one query, one partial block of QSEL, four and eight blocks
+    for q in (1, 5, 32, 64):
+        for ties in (False, True):
+            dots, rn, inv_q = dots_case(q, ties)
+            for n in ns:
+                cells_k = fs._dots_norm_cells_cuda(dots, rn, n, inv_q,
+                                                   "dots_norm_topk_fused_batched")
+                torch.cuda.synchronize()
+                cells_p = fs._dots_norm_cells_plain(dots, rn, n, inv_q)
+                check(_same_bits(torch, cells_k[0], cells_p[0])
+                      and torch.equal(cells_k[1], cells_p[1]),
+                      f"dots-norm cells bit-equal q={q} n={n} ties={ties}")
+                del cells_k, cells_p
+                vk, ik = fs.dots_norm_topk_fused_batched(dots, rn, n, inv_q, k)
+                torch.cuda.synchronize()
+                vp, ip = fs.dots_norm_topk_fused_batched_plain(dots, rn, n, inv_q, k)
+                check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                      f"dots_norm_topk_fused_batched bit-equal q={q} n={n} ties={ties}")
+            if ties or q not in (1, 32):
+                del dots
+                continue
+            b, by = dots_bound(q)
+            cells_k = fs._dots_norm_cells_cuda(dots, rn, c, inv_q,
                                                "dots_norm_topk_fused_batched")
-            torch.cuda.synchronize()
-            cells_p = fs._dots_norm_cells_plain(dots, rn, n, inv_q)
-            check(_same_bits(torch, cells_k[0], cells_p[0])
-                  and torch.equal(cells_k[1], cells_p[1]),
-                  f"dots-norm cells bit-equal q={q} n={n} ties={ties}")
-            del cells_k, cells_p
-            vk, ik = fs.dots_norm_topk_fused_batched(dots, rn, n, inv_q, k)
-            torch.cuda.synchronize()
-            vp, ip = fs.dots_norm_topk_fused_batched_plain(dots, rn, n, inv_q, k)
-            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
-                  f"dots_norm_topk_fused_batched bit-equal q={q} n={n} ties={ties}")
-        b, by = dots_bound(q)
-        cells_k = fs._dots_norm_cells_cuda(dots, rn, c, inv_q, "dots_norm_topk_fused_batched")
-        results["dots_norm_batched"].append({
-            "q": q, "c": c, "ties": ties, "max_abs_err": _max_abs(torch, vk, vp),
-            "ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_batched(
-                dots, rn, c, inv_q, k)),
-            "cells_ms": time_ms(torch, lambda: fs._dots_norm_cells_cuda(
-                dots, rn, c, inv_q, "dots_norm_topk_fused_batched")),
-            **_select_split(torch, *cells_k, k, True),
-            "plain_ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_batched_plain(
-                dots, rn, c, inv_q, k)),
-            "library_ms": None, "bound_ms": b, "bound_by": by,
-        })
-        del dots
+
+            def cells():
+                return fs._dots_norm_cells_cuda(dots, rn, c, inv_q,
+                                                "dots_norm_topk_fused_batched")
+
+            results["dots_norm_batched"].append({
+                "q": q, "c": c, "ties": ties, "max_abs_err": _max_abs(torch, vk, vp),
+                "ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_batched(
+                    dots, rn, c, inv_q, k)),
+                "device_ms": device_ms(torch, lambda: fs.dots_norm_topk_fused_batched(
+                    dots, rn, c, inv_q, k)),
+                "cells_ms": time_ms(torch, cells),
+                "cells_device_ms": device_ms(torch, cells),
+                "blocks_per_sm": fs.dots_norm_blocks_per_sm(q),
+                **_select_split(torch, *cells_k, k, True),
+                "plain_ms": time_ms(torch, lambda: fs.dots_norm_topk_fused_batched_plain(
+                    dots, rn, c, inv_q, k)),
+                "library_ms": None, "bound_ms": b, "bound_by": by,
+            })
+            del dots, cells_k
 
     # the int8 product: torch._int_mm, held exact against its plain version
     q8m = torch.randint(-127, 128, (c, knn.padded_dim(DIM)), generator=g,
@@ -1034,8 +1054,9 @@ def _kernels_int2(torch, dev, card: dict, g, c: int, d: int, results: dict) -> N
             vp, ip = i2.int2_topq_scores_plain(*args)
             same("int2_topq", vk, vp, f"int2_topq_scores values bit-equal n={n} q={qi}")
             check(torch.equal(ik, ip), f"int2_topq_scores rows equal n={n} q={qi}")
-    # #13: query blocks, both output types
-    for q in (1, 5, 32, 64, 70):
+    # #13: query blocks, both output types (Q = 1 runs the single-query
+    # kernel; Q >= 2 the tensor cores)
+    for q in (1, 2, 5, 32, 64, 70):
         for dtype in (torch.float32, torch.bfloat16):
             for n in ns:
                 args = (packed_t, *[w[:q] for w in quarters], corrs[:q], inv_n2, n)
@@ -1085,20 +1106,73 @@ def _kernels_int2(torch, dev, card: dict, g, c: int, d: int, results: dict) -> N
             packed_t, *one, corrs[0], inv_n2, c)),
         "library_ms": time_ms(torch, lambda: int_mm(1)), "bound_ms": b, "bound_by": by,
     })
-    for q in (1, 32, 64):
+    for q in (1, 2, 32, 64):
         args = (packed_t, *[w[:q] for w in quarters], corrs[:q], inv_n2, c)
         b, by = bound(q, q * c * 2)
+
+        def scan():
+            return i2.int2_masked_scores_batched(*args, out_dtype=torch.bfloat16)
+
         results["int2_scores_batched"].append({
             "q": q, "c": c, "d": d, "dtype": "bfloat16",
             "max_abs_err": err["int2_scores_batched"],
-            "ms": time_ms(torch, lambda: i2.int2_masked_scores_batched(
-                *args, out_dtype=torch.bfloat16)),
+            "ms": time_ms(torch, scan), "device_ms": device_ms(torch, scan),
+            "blocks_per_sm": i2.batched_blocks_per_sm(dq, q) if q > 1 else None,
             "plain_ms": time_ms(torch, lambda: i2.int2_masked_scores_batched_plain(
                 *args, out_dtype=torch.bfloat16)),
             "library_ms": time_ms(torch, lambda: int_mm(q)), "bound_ms": b, "bound_by": by,
         })
     del packed_t, inv_n2, unpacked
     torch.cuda.empty_cache()
+
+
+# widths past D/4 = 5,120, where one group of 8 queries' fragments no
+# longer fits the batched int2 kernel's shared memory and it reads them from
+# global memory: 5,125 (also a partial word and chunk) and the widest the
+# kernels take, int2_scan.MAX_DQ
+INT2_WIDE_DQ = (5125, 8192)
+INT2_WIDE_ROWS = 2176  # 8.5 tiles of 256 rows
+
+
+def _kernels_int2_wide(torch, dev, g, results: dict) -> None:
+    """The batched int2 kernel (#13) at D/4 = 5,125 (Q = 2, 5, 70) and
+    8,192 (Q = 9) against its plain version, bit for bit: float32 and
+    bfloat16 out, n at C, C - 1024 and mid-tile, on random packed bytes
+    with a zero column, one of every field at -2 and one at 1, and zero
+    inv_n2 slots. The plain version's float32 products are exact on the card
+    up to D/4 = 12,007."""
+    from ucfp_tpu_torch.ops import int2_scan as i2
+    from ucfp_tpu_torch.ops import knn
+
+    c = INT2_WIDE_ROWS
+    err = 0.0
+    for dq, qcount in zip(INT2_WIDE_DQ, ((2, 5, 70), (9,))):
+        packed_t = torch.randint(-128, 128, (dq, c), generator=g, device=dev,
+                                 dtype=torch.int8)
+        packed_t[:, 3] = 0
+        packed_t[:, 5] = -128
+        packed_t[:, 6] = 127
+        inv_n2 = torch.rand(c, generator=g, device=dev)
+        inv_n2[[3, 9]] = 0.0
+        qs = torch.randint(-127, 128, (max(qcount), 4 * dq), generator=g, device=dev,
+                           dtype=torch.int8)
+        qs[0] = 127
+        qs[1] = -127
+        *quarters, corrs = knn._int2_query_parts(qs)
+        for q in qcount:
+            for dtype in (torch.float32, torch.bfloat16):
+                for n in (c, c - 1024, c // 2 + 77):
+                    args = (packed_t, *[w[:q] for w in quarters], corrs[:q], inv_n2, n)
+                    got = i2.int2_masked_scores_batched(*args, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    want = i2.int2_masked_scores_batched_plain(*args, out_dtype=dtype)
+                    check(_same_bits(torch, got, want),
+                          f"int2_masked_scores_batched bit-equal q={q} {dtype} n={n} c={c} "
+                          f"d/4={dq}")
+                    err = max(err, _max_abs(torch, got, want))
+        del packed_t, inv_n2
+    results["int2_pack"].append({"c": c, "d": [4 * dq for dq in INT2_WIDE_DQ],
+                                 "max_abs_err": {"int2_scores_batched": err}})
 
 
 def _kernels_sketch(torch, dev, card: dict, g, c: int, results: dict) -> None:
@@ -2652,6 +2726,60 @@ def phase_bench(torch, dev) -> dict:
     return out
 
 
+# -- the A/B timings -----------------------------------------------------------
+
+
+def phase_ab(torch, dev) -> dict:
+    """Times only, no checks: #13 at Q = 1, 2, 32 and 64 (bf16) and #4 / #5
+    (the function and its cells, Q = 1 and 32) at 2^22 x 768 rows, on random
+    inputs from a seed, through wrappers that every checkout since the int2
+    tier has. A parent's checkout runs the same code when this file is
+    copied into it: `python3 chip_smoke.py --phases device,build,ab` in
+    each tree, in turns, in one call."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+    from ucfp_tpu_torch.ops import int2_scan as i2
+    from ucfp_tpu_torch.ops import knn
+
+    g = torch.Generator(device=dev).manual_seed(99)
+    c, k = INT2_ROWS, 16
+    out = {"c": c, "d": DIM}
+    packed_t = torch.randint(-128, 128, (DIM // 4, c), generator=g, device=dev,
+                             dtype=torch.int8)
+    inv_n2 = torch.rand(c, generator=g, device=dev)
+    *quarters, corrs = knn._int2_query_parts(
+        torch.randint(-127, 128, (64, DIM), generator=g, device=dev, dtype=torch.int8))
+    for q in (1, 2, 32, 64):
+        args = (packed_t, *[w[:q] for w in quarters], corrs[:q], inv_n2, c)
+
+        def scan():
+            return i2.int2_masked_scores_batched(*args, out_dtype=torch.bfloat16)
+
+        out[f"int2_masked_scores_batched_q{q}"] = {"ms": time_ms(torch, scan),
+                                                   "device_ms": device_ms(torch, scan)}
+    del packed_t
+    dot_max = 127 * 127 * DIM
+    rn = torch.randint(1, dot_max, (c,), generator=g, device=dev).float().sqrt()
+    for q, name in ((1, "dots_norm_topk_fused"), (32, "dots_norm_topk_fused_batched")):
+        dots = torch.randint(-dot_max, dot_max + 1, (q, c), generator=g, device=dev,
+                             dtype=torch.int32)
+        inv_q = 1.0 / torch.randint(1, dot_max, (q,), generator=g, device=dev).float().sqrt()
+
+        def cells():
+            return fs._dots_norm_cells_cuda(dots, rn, c, inv_q, name)
+
+        def whole():
+            if q == 1:
+                return fs.dots_norm_topk_fused(dots[0], rn, c, inv_q[0], k)
+            return fs.dots_norm_topk_fused_batched(dots, rn, c, inv_q, k)
+
+        out[f"{name}_q{q}"] = {"ms": time_ms(torch, whole), "device_ms": device_ms(torch, whole),
+                               "cells_ms": time_ms(torch, cells),
+                               "cells_device_ms": device_ms(torch, cells)}
+        del dots
+    say("ab: " + json.dumps(out))
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2692,8 +2820,8 @@ def _findings_line(kernels: dict, served: list) -> dict:
         ("int2_masked_scores", int2, 100, "int2_scores",
          pick(kernels["int2_scores"], c=INT2_ROWS), {"q": 1, "d": DIM}),
         ("int2_masked_scores_batched", int2, 162, "int2_scores_batched",
-         pick(kernels["int2_scores_batched"], c=INT2_ROWS, q=1),
-         {"q": 1, "d": DIM, "dtype": "bfloat16"}),
+         pick(kernels["int2_scores_batched"], c=INT2_ROWS, q=32),
+         {"q": 32, "d": DIM, "dtype": "bfloat16"}),
         ("int2_topq_scores", int2, 257, "int2_topq",
          pick(kernels["int2_topq"], c=INT2_ROWS), {"q": 1, "d": DIM}),
         ("asym_sketch_scores_tiled", knn, 366, "sketch",
@@ -2718,7 +2846,8 @@ def _findings_line(kernels: dict, served: list) -> dict:
          "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
          **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          # the fused scans' two halves: cells kernel and selection
-         **{f: row[f] for f in ("cells_ms", "select_ms", "device_ms") if f in row},
+         **{f: row[f] for f in ("cells_ms", "select_ms", "device_ms", "cells_device_ms",
+                                "blocks_per_sm") if f in row},
          "shape": {**shape, **({"c": row["c"]} if "c" in row else {"n": row["n"]})}}
         for name, path, line, key, row, shape in rows
     ]}
@@ -2748,6 +2877,8 @@ def main() -> int:
     if "build" in phases:
         phase_build()
     kernels = phase_kernels(torch, dev, card) if "kernels" in phases else None
+    if "ab" in phases:
+        phase_ab(torch, dev)
     if "conformance" in phases:
         phase_conformance(dev)
     served = []

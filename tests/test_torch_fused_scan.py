@@ -275,6 +275,45 @@ def test_dots_norm_ties_and_rows_beyond_n(q):
     assert np.isneginf(v.numpy()[:, 1:]).all()
 
 
+@pytest.mark.parametrize("q", [1, 3, 11])
+@pytest.mark.parametrize("ties", [False, True])
+def test_dots_norm_row_slices_match_pallas(q, ties):
+    """The card kernel's order (dots_norm_cells_sliced: 8 interleaved row
+    slices, then a merge by score and lowest row) gives the reference's
+    cells and top-k, with duplicated rows, ties everywhere, rows beyond n
+    and whole -inf cells."""
+    c = 2 * TILE
+    dots, rn, inv_q = _dots_case(c, q, seed=5 * q + ties, ties=ties)
+    td, tr, ti = torch.from_numpy(dots), torch.from_numpy(rn), torch.from_numpy(inv_q)
+    for n in (*_n_values(c), 200):
+        cells = fused_scan.dots_norm_cells_sliced(td, tr, n, ti)
+        plain = fused_scan._dots_norm_cells_plain(td, tr, n, ti)
+        assert torch.equal(cells[0].view(torch.int32), plain[0].view(torch.int32))
+        assert torch.equal(cells[1], plain[1])
+        v, i = fused_scan._select_plain(*cells, 16, largest=True)
+        v_ref, i_ref = pallas_scan.dots_norm_topk_fused_batched(
+            jnp.asarray(dots), jnp.asarray(rn), jnp.int32(n), jnp.asarray(inv_q), 16)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+def test_dots_norm_row_slices_signed_zeros():
+    """A zero 1/|q| makes every score +-0.0: each cell keeps its lowest
+    row and that row's own sign, in the slices' merge as in the plain
+    cells."""
+    c = TILE
+    rng = np.random.default_rng(3)
+    dots = torch.from_numpy(rng.integers(-3, 4, (2, c)).astype(np.int32))
+    rn = torch.ones(c)
+    inv_q = torch.zeros(2)
+    cells = fused_scan.dots_norm_cells_sliced(dots, rn, c, inv_q)
+    plain = fused_scan._dots_norm_cells_plain(dots, rn, c, inv_q)
+    assert torch.equal(cells[0].view(torch.int32), plain[0].view(torch.int32))
+    assert torch.equal(cells[1], plain[1])
+    assert bool((cells[1] == torch.arange(fused_scan.LANES)).all())  # row 0 of the tile
+    assert bool(torch.signbit(cells[0]).any()) and bool((cells[0] == 0).all())
+
+
 @pytest.mark.parametrize("c", [TILE, 2 * TILE])
 @pytest.mark.parametrize("largest", [True, False])
 @pytest.mark.parametrize("k", [1, 10, 16])

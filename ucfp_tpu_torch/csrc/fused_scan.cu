@@ -48,16 +48,32 @@
 // pallas_scan.py:397): the int8 tier's cosine straight off the int32
 // product, s = (float)dot / max(|row|, 1e-9) * (1/|q|) for rows below the
 // prefix length n with |row| > 0, else -inf, then the per-cell argbest.
-// Bound: device memory -- it reads each dot once and each row norm once
-// per query block, Q*C*4 + ceil(Q/8)*C*4 bytes (at Q = 32, C = 2^23 about
-// 1.1 GiB, 0.33 ms at 3.35 TB/s), and does one division and one product
-// per dot. Design: the scores kernel's shape (one block per (256-row tile,
-// block of <= 8 queries); 128 lanes x 8 row groups, coalesced loads,
-// group winners merged in row order with a strict '>'), and each thread
-// loads a row's norm once for all the queries of its block. The division
-// and the product stay two correctly rounded operations (no fast-math,
-// no reciprocal), so the scores equal the reference's bit for bit while
-// the dots are exact in float32 (|dot| < 2^24, D <= 1040).
+// Bound: device memory -- it must read each dot once and each row norm
+// once, Q*C*4 + C*4 bytes (at Q = 32, C = 2^22 0.55 GB, 0.165 ms at
+// 3.35 TB/s); per dot it does one conversion, one division and one
+// product, a small share of the bytes' time, so what the kernel must do is
+// keep enough bytes in flight. Design: one block of 256 threads (8 warps)
+// per (256-row tile, block of up to 8 queries), the query blocks of one
+// tile side by side in the grid so they meet its norms in L2. Warp w takes
+// rows w, w + 8, ... of the tile, one row per step, and each thread 4
+// adjacent lanes: 16-byte pieces, so a warp reads one row's 512
+// contiguous bytes of norms and of each query's dots. The rows stream
+// through a ring in shared memory, per warp, with cp.async: each slot
+// holds a row's norms and its dots for every query of the block, and a
+// thread copies exactly the pieces it reads back, so the ring needs no
+// barrier; 2 rows of 8 queries (9 KB), or 7 rows of one query (7 KB), are
+// in flight per warp: 150 KB per SM at two blocks of 8 queries, where
+// loads held in registers kept under half of that. A row's norms are read
+// once and used for every query of the block. Each thread keeps, per query
+// and lane, the first row of its best value (strict '>', rows ascending,
+// an all -inf run keeping its first row); the 8 warps' winners meet in
+// shared memory (the ring's, once drained), 4 queries a round, where one
+// thread per (query, lane) takes the best value and, among equal values,
+// the lowest row with that row's own value (fused_scan.dots_norm_cells_
+// sliced is this order in plain PyTorch). The division and the product
+// stay two correctly rounded operations (no fast-math, no reciprocal), so
+// the scores equal the reference's bit for bit while the dots are exact in
+// float32 (|dot| < 2^24, D <= 1040).
 //
 // ucfp_hamming_topk_cells replaces pallas_scan.hamming_topk_fused
 // (_hamming_kernel, pallas_scan.py:79), the single-query scan each shard of
@@ -79,20 +95,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int LANES = 128;
 constexpr int SCORE_TILE_ROWS = 256;  // pallas_scan.ROWS_PER_TILE
-constexpr int SCORE_GROUPS = 8;       // row groups per scores block
-constexpr int SCORE_GROUP_ROWS = SCORE_TILE_ROWS / SCORE_GROUPS;
 constexpr int HAM_TILE_ROWS = 128;    // pallas_scan.ROWS_PER_TILE // 2
 constexpr int QSEL = 8;               // pallas_scan.QSEL
 constexpr int MAX_WORDS = 16;         // pallas_scan.MAX_FUSED_HAMMING_WORDS
 constexpr int INVALID_DIST = 1 << 30;
 constexpr float NORM_FLOOR = 1e-9f;   // jnp.maximum(row_norm, 1e-9)
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 constexpr int CELL_THREADS = 512;  // scores cells: threads per (tile, query) block
 
@@ -177,72 +191,159 @@ scores_cells_kernel(const T* __restrict__ scores, long long c, int tiles,
   idx_out[out] = (t * SCORE_TILE_ROWS + br) * LANES + lane;
 }
 
-__global__ void __launch_bounds__(LANES * SCORE_GROUPS)
+constexpr int DN_THREADS = 256;                       // dots-norm cells: 8 warps
+constexpr int DN_RSTEP = DN_THREADS / 32;             // one row per warp and step
+constexpr int DN_STEPS = SCORE_TILE_ROWS / DN_RSTEP;  // 32 rows per warp
+constexpr int DN_MERGE_Q = 4;                         // queries merged per round
+constexpr int DN_MAX_DEVICES = 64;
+
+// QB queries per block; each warp keeps R rows in a ring of shared memory,
+// R - 1 of them in flight, each slot the row's norms and then each query's
+// dots (QB + 1 chunks of 512 bytes); a thread copies (cp.async) exactly the
+// 16-byte pieces it reads back, so the ring needs no barrier
+template <int QB, int R>
+__host__ __device__ constexpr int dn_smem_bytes() {
+  return DN_THREADS / 32 * R * (QB + 1) * 512;
+}
+
+template <int QB, int R>
+__global__ void __launch_bounds__(DN_THREADS, 2)
 dots_norm_cells_kernel(const int* __restrict__ dots, int nq_total, long long c,
                        const float* __restrict__ row_norm, long long n,
                        const float* __restrict__ inv_q, int tiles,
                        float* __restrict__ best_out, int* __restrict__ idx_out) {
-  const int lane = threadIdx.x;
-  const int group = threadIdx.y;
-  const int t = blockIdx.x;
-  const int q0 = blockIdx.y * QSEL;
-  const int nq = min(QSEL, nq_total - q0);
+  static_assert(DN_STEPS >= R && R >= 2, "a ring of 2 to 32 rows");
+  constexpr int MQ = QB < DN_MERGE_Q ? QB : DN_MERGE_Q;
+  static_assert(dn_smem_bytes<QB, R>() >= MQ * DN_RSTEP * LANES * 8, "merge fits the ring");
+  extern __shared__ __align__(16) uint4 dn_smem[];
+  const int tid = threadIdx.x;
+  const int rs = tid >> 5;          // row slice (the warp): rows rs, rs + 8, ...
+  const int l0 = (tid & 31) * 4;    // lanes l0..l0+3
+  const int q0 = blockIdx.x * QB;   // the query blocks of a tile run side by side
+  const int t = blockIdx.y;
+  const int nq = min(QB, nq_total - q0);
+  const long long e0 = (long long)t * SCORE_TILE_ROWS * LANES + l0;
+  // this thread's pieces: slot k, chunk j at ring[(k * (QB + 1) + j) * 32]
+  uint4* ring = dn_smem + (long long)rs * R * (QB + 1) * 32 + (tid & 31);
 
-  float iq[QSEL];
-  float best[QSEL];
-  int best_r[QSEL];
+  auto issue = [&](int st) {  // row st * 8 + rs into slot st % R
+    const long long e = e0 + (long long)(st * DN_RSTEP + rs) * LANES;
+    uint4* slot = ring + (st % R) * (QB + 1) * 32;
+    cp_async16(slot, row_norm + e);
 #pragma unroll
-  for (int qi = 0; qi < QSEL; ++qi) {
-    iq[qi] = qi < nq ? inv_q[q0 + qi] : 0.0f;
-    best[qi] = -INFINITY;
-    best_r[qi] = 0;
+    for (int qi = 0; qi < QB; ++qi)
+      if (qi < nq) cp_async16(slot + (1 + qi) * 32, dots + (long long)(q0 + qi) * c + e);
+  };
+#pragma unroll
+  for (int st = 0; st < R - 1; ++st) {
+    issue(st);
+    cp_async_commit();
   }
-  const int r0 = group * SCORE_GROUP_ROWS;
-  for (int r = 0; r < SCORE_GROUP_ROWS; ++r) {
-    const long long row = ((long long)t * SCORE_TILE_ROWS + r0 + r) * LANES + lane;
-    const float rn = row_norm[row];
-    const bool ok = row < n && rn > 0.0f;
-    const float denom = fmaxf(rn, NORM_FLOOR);
+
+  float iq[QB];
+  float best[QB][4];
+  int best_r[QB][4];
 #pragma unroll
-    for (int qi = 0; qi < QSEL; ++qi) {
+  for (int qi = 0; qi < QB; ++qi) {
+    iq[qi] = qi < nq ? __ldg(inv_q + q0 + qi) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      best[qi][j] = -INFINITY;
+      best_r[qi][j] = rs;
+    }
+  }
+  for (int st = 0; st < DN_STEPS; ++st) {
+    cp_async_wait<R - 2>();  // row st has landed
+    if (st + R - 1 < DN_STEPS) issue(st + R - 1);  // into the slot row st - 1 left
+    cp_async_commit();
+    const uint4* slot = ring + (st % R) * (QB + 1) * 32;
+    const int r = st * DN_RSTEP + rs;
+    const long long e = e0 + (long long)r * LANES;
+    const uint4 rn = slot[0];
+    const float rv[4] = {__uint_as_float(rn.x), __uint_as_float(rn.y), __uint_as_float(rn.z),
+                         __uint_as_float(rn.w)};
+    bool ok[4];
+    float den[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ok[j] = e + j < n && rv[j] > 0.0f;
+      den[j] = fmaxf(rv[j], NORM_FLOOR);
+    }
+#pragma unroll
+    for (int qi = 0; qi < QB; ++qi) {
       if (qi < nq) {
-        const float d = (float)dots[(long long)(q0 + qi) * c + row];
-        const float s = ok ? d / denom * iq[qi] : -INFINITY;
-        if (s > best[qi]) {
-          best[qi] = s;
-          best_r[qi] = r;
+        const uint4 d = slot[(1 + qi) * 32];
+        const int dv[4] = {(int)d.x, (int)d.y, (int)d.z, (int)d.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float sc = ok[j] ? (float)dv[j] / den[j] * iq[qi] : -INFINITY;
+          if (sc > best[qi][j]) {
+            best[qi][j] = sc;
+            best_r[qi][j] = r;
+          }
         }
       }
     }
   }
+  cp_async_wait<0>();
 
-  __shared__ float s_val[SCORE_GROUPS][LANES];
-  __shared__ int s_row[SCORE_GROUPS][LANES];
+  // the row slices' winners, MQ queries a round, in the ring's memory
+  float(*s_val)[DN_RSTEP][LANES] = reinterpret_cast<float(*)[DN_RSTEP][LANES]>(dn_smem);
+  int(*s_row)[DN_RSTEP][LANES] = reinterpret_cast<int(*)[DN_RSTEP][LANES]>(s_val + MQ);
 #pragma unroll
-  for (int qi = 0; qi < QSEL; ++qi) {
-    if (qi >= nq) break;  // nq is the same for the whole block
-    s_val[group][lane] = best[qi];
-    s_row[group][lane] = r0 + best_r[qi];
+  for (int m0 = 0; m0 < QB; m0 += MQ) {
+    if (m0 >= nq) break;  // nq is the same for the whole block
+    __syncthreads();  // every warp is done with the ring, or with the last round
+#pragma unroll
+    for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s_val[mq][rs][l0 + j] = best[m0 + mq][j];
+        s_row[mq][rs][l0 + j] = best_r[m0 + mq][j];
+      }
     __syncthreads();
-    if (group == 0) {
-      // groups hold ascending row ranges: a strict comparison keeps the
-      // earliest group's (lowest) row on ties, and an all -inf cell keeps
-      // its first row, as _lane_argbest does
-      float b = s_val[0][lane];
-      int br = s_row[0][lane];
-      for (int g = 1; g < SCORE_GROUPS; ++g) {
-        const float v = s_val[g][lane];
-        if (v > b) {
+    for (int cell = tid; cell < MQ * LANES; cell += DN_THREADS) {
+      const int mq = cell / LANES, lane = cell % LANES;
+      if (m0 + mq >= nq) continue;
+      // the best value, and among equal values the lowest row (slices
+      // interleave, so rows are compared), keeping that row's own value
+      float b = s_val[mq][0][lane];
+      int br = s_row[mq][0][lane];
+      for (int g = 1; g < DN_RSTEP; ++g) {
+        const float v = s_val[mq][g][lane];
+        const int r = s_row[mq][g][lane];
+        if (v > b || (v == b && r < br)) {
           b = v;
-          br = s_row[g][lane];
+          br = r;
         }
       }
-      const long long out = ((long long)(q0 + qi) * tiles + t) * LANES + lane;
+      const long long out = ((long long)(q0 + m0 + mq) * tiles + t) * LANES + lane;
       best_out[out] = b;
       idx_out[out] = (t * SCORE_TILE_ROWS + br) * LANES + lane;
     }
-    __syncthreads();
   }
+}
+
+// f(kernel, queries per block, dynamic shared memory) for the dots-norm
+// cells kernel of q queries, its shared-memory cap set once per device
+template <typename F>
+int with_dots_norm_kernel(int q, F&& f) {
+  static int ready[2][DN_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= DN_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  auto run = [&](auto kernel, int qb, int smem, int& done) {
+    if (!done) {
+      const cudaError_t a =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (a != cudaSuccess) return (int)a;
+      done = 1;
+    }
+    return f(kernel, qb, smem);
+  };
+  if (q == 1) return run(dots_norm_cells_kernel<1, 8>, 1, dn_smem_bytes<1, 8>(), ready[0][dev]);
+  return run(dots_norm_cells_kernel<QSEL, 3>, QSEL, dn_smem_bytes<QSEL, 3>(), ready[1][dev]);
 }
 
 template <int W>
@@ -481,9 +582,18 @@ extern "C" int ucfp_dots_norm_cells(const int* dots, int q, long long c, const f
       c % (SCORE_TILE_ROWS * LANES) != 0 || c > (1LL << 31))  // int32 row indices
     return (int)cudaErrorInvalidValue;
   const int tiles = (int)(c / (SCORE_TILE_ROWS * LANES));
-  const dim3 grid(tiles, (q + QSEL - 1) / QSEL);
-  const dim3 block(LANES, SCORE_GROUPS);
-  dots_norm_cells_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      dots, q, c, row_norm, n, inv_q, tiles, best, idx);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dots_norm_kernel(q, [&](auto kernel, int qb, int smem) {
+    kernel<<<dim3((q + qb - 1) / qb, tiles), DN_THREADS, smem, s>>>(
+        dots, q, c, row_norm, n, inv_q, tiles, best, idx);
+    return (int)cudaGetLastError();
+  });
+}
+
+// blocks per SM of the dots-norm cells kernel that serves q queries
+extern "C" int ucfp_dots_norm_blocks_per_sm(int q, int* per_sm) {
+  if (q <= 0) return (int)cudaErrorInvalidValue;
+  return with_dots_norm_kernel(q, [&](auto kernel, int, int smem) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, DN_THREADS, smem);
+  });
 }

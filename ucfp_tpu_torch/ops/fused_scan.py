@@ -58,6 +58,7 @@ import torch
 LANES = 128
 ROWS_PER_TILE = 256  # scores tile: ROWS_PER_TILE * 128 catalog rows
 ROWS_PER_TILE_C = 128  # int8-cosine tile: ROWS_PER_TILE_C * 128 catalog rows
+DN_SLICES = 8  # interleaved row slices of the dots-norm cells kernel (csrc/fused_scan.cu)
 SUB = 8  # segments per int8-cosine line tile (cosine_int8_topk_mxu)
 HAMMING_ROWS_PER_TILE = ROWS_PER_TILE // 2  # Hamming tile: 128 * 128 rows
 QSEL = 8  # queries per Hamming block: one catalog read serves 8 queries
@@ -109,6 +110,8 @@ def _kernels():
         lib.ucfp_hamming_cells.argtypes = [p, i, i, p, p, ll, p, p, p]
         lib.ucfp_dots_norm_cells.restype = i
         lib.ucfp_dots_norm_cells.argtypes = [p, i, ll, p, ll, p, p, p, p]
+        lib.ucfp_dots_norm_blocks_per_sm.restype = i
+        lib.ucfp_dots_norm_blocks_per_sm.argtypes = [i, ctypes.POINTER(i)]
         lib.ucfp_hamming_topk_cells.restype = i
         lib.ucfp_hamming_topk_cells.argtypes = [p, i, p, ll, p, p, p]
         lib.ucfp_cosine_i8_cells.restype = i
@@ -334,6 +337,34 @@ def _dots_norm_cells_plain(dots: torch.Tensor, row_norm: torch.Tensor,
     return _scores_cells_plain(scores, True)
 
 
+def dots_norm_cells_sliced(dots: torch.Tensor, row_norm: torch.Tensor,
+                           n_valid: int, inv_q: torch.Tensor):
+    """The card's dots-norm cells kernel in its own order, in plain PyTorch:
+    each of DN_SLICES interleaved row slices of a tile (rows s, s + 8, ...)
+    keeps the first row of its best score (a strict '>' from -inf, rows
+    ascending, so an all -inf slice keeps its first row); the slices'
+    winners merge by the best score and, among equal scores (+-0.0
+    included), the lowest row, with that row's own score. The CPU tests
+    hold it equal to _dots_norm_cells_plain and the reference."""
+    q, c = dots.shape
+    dev = dots.device
+    ok = (torch.arange(c, device=dev) < n_valid) & (row_norm > 0.0)
+    rn = torch.clamp(row_norm, min=1e-9)
+    s = torch.where(ok[None, :], dots.float() / rn[None, :] * inv_q[:, None], NEG_INF)
+    tiles = c // (ROWS_PER_TILE * LANES)
+    steps = ROWS_PER_TILE // DN_SLICES
+    s5 = s.view(q, tiles, steps, DN_SLICES, LANES)  # row = step * DN_SLICES + slice
+    step = torch.arange(steps, device=dev).view(1, 1, -1, 1, 1)
+    first = torch.where(s5 == s5.amax(dim=2, keepdim=True), step, steps).amin(dim=2)
+    val = torch.gather(s5, 2, first[:, :, None]).squeeze(2)  # [Q, T, slice, lane]
+    row = first * DN_SLICES + torch.arange(DN_SLICES, device=dev).view(1, 1, -1, 1)
+    best = torch.where(val == val.amax(dim=2, keepdim=True), row, ROWS_PER_TILE).amin(dim=2)
+    v = torch.gather(s.view(q, tiles, ROWS_PER_TILE, LANES), 2, best[:, :, None]).squeeze(2)
+    t_ix = torch.arange(tiles, device=dev).view(1, -1, 1)
+    gidx = (t_ix * ROWS_PER_TILE + best) * LANES + torch.arange(LANES, device=dev)
+    return v.reshape(q, -1), gidx.to(torch.int32).reshape(q, -1)
+
+
 def _dots_norm_cells_cuda(dots: torch.Tensor, row_norm: torch.Tensor,
                           n_valid: int, inv_q: torch.Tensor, name: str):
     q, c = dots.shape
@@ -342,6 +373,7 @@ def _dots_norm_cells_cuda(dots: torch.Tensor, row_norm: torch.Tensor,
             raise ValueError(f"{arg} must be contiguous")
         if t.device != dots.device:
             raise ValueError(f"{arg} must be on {dots.device}")
+    dots, row_norm = _aligned16(dots), _aligned16(row_norm)  # 16-byte copies
     tiles = c // (ROWS_PER_TILE * LANES)
     best = torch.empty((q, tiles * LANES), dtype=torch.float32, device=dots.device)
     gidx = torch.empty((q, tiles * LANES), dtype=torch.int32, device=dots.device)
@@ -352,6 +384,15 @@ def _dots_norm_cells_cuda(dots: torch.Tensor, row_norm: torch.Tensor,
     _check(rc, name)
     _count(name)
     return best, gidx
+
+
+def dots_norm_blocks_per_sm(q: int) -> int:
+    """Blocks per SM of the card's dots-norm cells kernel (#4 / #5) for q
+    queries, by cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    per_sm = ctypes.c_int(0)
+    _check(_kernels().ucfp_dots_norm_blocks_per_sm(q, ctypes.byref(per_sm)),
+           "dots_norm_blocks_per_sm")
+    return per_sm.value
 
 
 def _row_dots(q8: torch.Tensor, db8: torch.Tensor) -> torch.Tensor:

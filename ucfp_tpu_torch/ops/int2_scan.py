@@ -18,7 +18,17 @@ below 2^23); only the product rounds, once.
 Kernels (CUDA C++ for sm_90a, csrc/int2_scan.cu):
   * int2_masked_scores — one query's [C] float32 scores;
   * int2_masked_scores_batched — a [Q, D/4] block with one corr per
-    query, float32 or bfloat16 out (round to nearest even);
+    query, float32 or bfloat16 out (round to nearest even). Q >= 2 runs
+    on the int8 tensor cores (the scan csrc/mma_scan.cuh shares with the
+    batched int4 kernel): each 2-bit field becomes an exact signed byte
+    scaled by 64 (64a = byte & 0xC0; 64*(f - 2) = ((byte << s) & 0xC0) ^
+    0x80 for the biased fields, s = 2, 4, 6), so a catalog row is the
+    K = D vector [64a | 64b | 64c | 64d] against [qa | qb | qc | qd] and
+    one s32 sum holds 64*(dot - bias), bias = 2*(sum qb + sum qc + sum qd);
+    the kernel adds the bias back after >> 6. `mma_operands` builds those
+    operands in the kernel's K order, and `mma_scores_plain` multiplies
+    them on any device, so the CPU tests hold the identity the kernel
+    relies on. Q = 1 runs the single-query kernel;
   * int2_topq_scores — one query's masked scores, then per 512-row
     segment the top TOPQ = 8 inside the kernel (the reference's rule:
     each pass takes the largest value and the lowest row holding it, then
@@ -47,6 +57,7 @@ ROW_ALIGN = 128  # the kernels take whole 128-row blocks of the catalog
 MAX_DQ = 8192  # the widest D/4 the kernels take (csrc/int2_scan.cu)
 TOPQ = 8  # survivors per segment (int2_topq_scores)
 TOPQ_SEG = 512  # rows per selection segment
+MMA_KSTEP_QUARTERS = 16  # dim quarters per chunk (two k32 steps) of the batched kernel
 
 # the plain versions' float32 products on CUDA must not round to TF32
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -83,7 +94,9 @@ def _kernels():
         lib = kernel_library()
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ucfp_int2_scan.restype = i
-        lib.ucfp_int2_scan.argtypes = [p, i, ll, p, i, i, p, p, ll, i, p, p, p]
+        lib.ucfp_int2_scan.argtypes = [p, i, ll, p, i, i, p, p, p, ll, i, p, p, p]
+        lib.ucfp_int2_batched_blocks_per_sm.restype = i
+        lib.ucfp_int2_batched_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
         _lib = lib
     return _lib
 
@@ -151,6 +164,57 @@ def _topq_plain(scores: torch.Tensor):
     return torch.stack(vals, dim=1).reshape(-1), gidx.to(torch.int32).reshape(-1)
 
 
+def _unbias(q8: torch.Tensor) -> torch.Tensor:
+    """The batched kernel's per-query bias, 2 * (sum qb + sum qc + sum qd),
+    from the four stacked quarters [4, nq, >= D/4] int8 (zero padded): what
+    its exact signed fields (b, c, d in [-2, 1] instead of the stored b + 2,
+    c + 2, d + 2) leave out of the dot. [nq] int32."""
+    return 2 * q8[1:].sum(dim=(0, 2), dtype=torch.int32)
+
+
+def mma_operands(packed_t: torch.Tensor, quarters):
+    """The s8 operands of the batched kernel's tensor-core product, in its
+    K order: ([C, K] int8 catalog rows, [N, K] int8 queries), K = 64 *
+    ceil(D/4 / 16), N = 8 * ceil(nq / 8). Chunk s of 16 quarters holds, in
+    slots 64s.. of K, 64a (byte & 0xC0), then 64b (((byte << 2) & 0xC0) ^
+    0x80), 64c (shift 4) and 64d (shift 6) of quarters 16s..16s+15: two k32
+    steps, [A | B] then [C | D]; the queries hold qa, qb, qc, qd there.
+    Past D/4 the catalog side is a zero byte's unpack (0 and three -128, as
+    the kernel's shared memory may hold anything there) and the query side
+    0; queries past nq are 0."""
+    dq, c = packed_t.shape
+    nq = quarters[0].shape[0]
+    ks = -(-dq // MMA_KSTEP_QUARTERS)
+    padded = torch.zeros((ks * MMA_KSTEP_QUARTERS, c), dtype=torch.int8, device=packed_t.device)
+    padded[:dq] = packed_t
+    u = padded.view(torch.uint8).to(torch.int16)
+    fields = [u & 0xC0] + [((u << s) & 0xC0) ^ 0x80 for s in (2, 4, 6)]
+    a = torch.stack([f.to(torch.uint8).view(torch.int8).view(ks, MMA_KSTEP_QUARTERS, c)
+                     for f in fields], dim=1).reshape(4 * ks * MMA_KSTEP_QUARTERS, c)
+    qw = torch.zeros((4, -(-nq // 8) * 8, ks * MMA_KSTEP_QUARTERS), dtype=torch.int8,
+                     device=packed_t.device)
+    for i, w in enumerate(quarters):
+        qw[i, :nq, :dq] = w
+    b = qw.view(4, -1, ks, MMA_KSTEP_QUARTERS).permute(1, 2, 0, 3).reshape(qw.shape[1], -1)
+    return a.T.contiguous(), b
+
+
+def mma_scores_plain(packed_t, quarters, corrs, inv_n2, n_valid: int, out_dtype):
+    """The batched kernel's arithmetic on any device: the [C, K] x [K, N]
+    product of mma_operands in int64 (the kernel's s32 sums stay below
+    2^30), then its epilogue: >> 6, + _unbias, float32(dot) - corr (exact),
+    the one float32 product by inv_n2 with -inf past n_valid and where
+    inv_n2 == 0, rounded to out_dtype. -> [nq, C]."""
+    a, b = mma_operands(packed_t, quarters)
+    acc = (a.to(torch.int64) @ b.to(torch.int64).T)[:, :quarters[0].shape[0]].T  # [nq, C]
+    bias = _unbias(torch.stack(quarters)).to(torch.int64)
+    dots = ((acc >> 6) + bias[:, None]).to(torch.int32)
+    c = packed_t.shape[1]
+    ok = (torch.arange(c, device=dots.device) < n_valid) & (inv_n2 > 0.0)
+    sc = (dots.float() - corrs[:, None]) * inv_n2[None, :]
+    return torch.where(ok[None, :], sc, NEG_INF).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # the kernel launch
 # ---------------------------------------------------------------------------
@@ -159,12 +223,11 @@ def _topq_plain(scores: torch.Tensor):
 def _query_words(quarters) -> torch.Tensor:
     """Four [nq, dq] int8 quarters -> [4, nq, ceil(dq/4)] int32: four dims
     per word, byte b of word g = dim 4g + b, zero past dq."""
-    nq, dq = quarters[0].shape
-    groups = -(-dq // 4)
-    out = torch.zeros((4, nq, 4 * groups), dtype=torch.int8, device=quarters[0].device)
-    for i, w in enumerate(quarters):
-        out[i, :, :dq] = w
-    return out.view(torch.int32)
+    q8 = torch.stack(quarters)
+    dq = q8.shape[2]
+    if dq % 4:
+        q8 = torch.nn.functional.pad(q8, (0, -dq % 4))
+    return q8.view(torch.int32)
 
 
 def _launch(name: str, packed_t, quarters, corrs, inv_n2, n_valid: int, kind: int,
@@ -177,12 +240,14 @@ def _launch(name: str, packed_t, quarters, corrs, inv_n2, n_valid: int, kind: in
             raise ValueError(f"{name}: {arg} must be on {dev}")
     if dq > MAX_DQ:
         raise ValueError(f"{name}: the kernel takes D/4 <= {MAX_DQ}, got {dq}")
-    if not packed_t.is_contiguous() or packed_t.data_ptr() % 4:
-        raise ValueError(f"{name}: packed_t must be contiguous and 4-byte aligned")
+    align = 4 if nq == 1 else 16  # word loads; cp.async of 16 bytes
+    if not packed_t.is_contiguous() or packed_t.data_ptr() % align:
+        raise ValueError(f"{name}: packed_t must be contiguous and {align}-byte aligned")
     if not inv_n2.is_contiguous() or inv_n2.data_ptr() % 16:
         raise ValueError(f"{name}: inv_n2 must be contiguous and 16-byte aligned")
     words = _query_words(quarters)
     corrs = corrs.to(torch.float32).contiguous()
+    bias = _unbias(words.view(torch.int8)) if nq > 1 else None
     idx = None
     if kind == _OUT_TOPQ:
         nout = c // TOPQ_SEG * TOPQ
@@ -192,12 +257,23 @@ def _launch(name: str, packed_t, quarters, corrs, inv_n2, n_valid: int, kind: in
         out = torch.empty((nq, c), dtype=out_dtype, device=dev)
     rc = _kernels().ucfp_int2_scan(
         packed_t.data_ptr(), dq, c, words.data_ptr(), nq, words.shape[2],
-        corrs.data_ptr(), inv_n2.data_ptr(), int(n_valid), kind, out.data_ptr(),
-        None if idx is None else idx.data_ptr(), _stream_ptr(packed_t),
+        None if bias is None else bias.data_ptr(), corrs.data_ptr(), inv_n2.data_ptr(),
+        int(n_valid), kind, out.data_ptr(), None if idx is None else idx.data_ptr(),
+        _stream_ptr(packed_t),
     )
     _check(rc, name)
     _count(name)
     return out if idx is None else (out, idx)
+
+
+def batched_blocks_per_sm(dq: int, nq: int, out_dtype=torch.bfloat16) -> int:
+    """Blocks per SM of the card's batched (tensor-core) kernel for nq >= 2
+    queries at D/4 = dq, by cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    per_sm = ctypes.c_int(0)
+    kind = _OUT_BF16 if out_dtype == torch.bfloat16 else _OUT_F32
+    _check(_kernels().ucfp_int2_batched_blocks_per_sm(dq, nq, kind, ctypes.byref(per_sm)),
+           "int2_batched_blocks_per_sm")
+    return per_sm.value
 
 
 # ---------------------------------------------------------------------------
@@ -283,9 +359,9 @@ def int2_masked_scores_batched(packed_t: torch.Tensor, wa: torch.Tensor,
                                out_dtype=torch.float32) -> torch.Tensor:
     """Batched masked prefilter scores: wa..wd [Q, D/4] int8, corrs [Q]
     float32 -> [Q, C] in out_dtype (float32 or bfloat16, rounded to
-    nearest even from the float32 score). The batched kernel reads each
-    catalog tile once for up to 64 queries; one query (Q = 1) runs the
-    single-query kernel with the same stores."""
+    nearest even from the float32 score). The batched kernel (int8 tensor
+    cores) reads each catalog tile once for up to 64 queries; one query
+    (Q = 1) runs the single-query kernel with the same stores."""
     return _masked_batched(packed_t, wa, wb, wc, wd, corrs, inv_n2, n_valid, out_dtype,
                            plain=False)
 
