@@ -31,14 +31,18 @@ each:
                   cells and top-k, with tie-heavy catalogs and an all-zero
                   query, and their errors raised; the shared top-k
                   selection kernel (select_topk) bit-equal to the stable
-                  sort at 16,384, 39,040 and 78,080 candidates, Q = 1, 5
-                  and 64, k from 1 to N (above its shared-memory sort's
-                  16,384 too), f32 / bf16 / int32, ties, +-0.0 and +-inf;
-                  every fused function's selection share beside
-                  torch.topk over the same candidates; #3 at the int4
-                  pool (k = 2048) at 2^22, 2^23 and 9,994,240 rows and #1
-                  at the int4 batch pool (bf16, k = 640); for #1, #3 and
-                  the selection also the card's own time (torch.profiler)
+                  sort at 16,384, 39,040, 78,080 and 39,043 candidates,
+                  Q = 1, 2 and 5 on each path (one block per query and a
+                  cluster of 8 CTAs per query) and Q = 64, k from 1 to N
+                  (above its shared-memory sort's 16,384 too), f32 / bf16
+                  / int32, ties (across a cluster rank's boundary too),
+                  +-0.0 and +-inf, and its path sweep (the cluster
+                  threshold); every fused function's selection
+                  share beside torch.topk over the same candidates; #3 at
+                  the int4 pool (k = 2048) at 2^22, 2^23 and 9,994,240
+                  rows and #1 at the int4 batch pool (bf16, k = 640); for
+                  #1, #3, #6, #7 and the selection also the card's own
+                  time (torch.profiler)
   4. conformance  the image hashes computed on the card against
                   tests/goldens/conformance.json
   5. served       the port's EmbeddedBackend on the card, bulk-loaded with
@@ -104,8 +108,9 @@ requests and a read just after (in phase 12, around the bench's run).
 Then one JSON line with every kernel's numbers (launches summed over
 phases 5-12), and last the line {"ok": true, "device": {...}}.
 --phases picks a subset (default: all twelve). One more phase, ab, is
-in no default run: the times of #13 and #4 / #5 alone, with no check,
-for an A/B against a parent's checkout (phase_ab).
+in no default run: the times of #13, #4 / #5, #6, #7 and the one-query
+selection alone, with no check, for an A/B against a parent's checkout
+(phase_ab).
 """
 
 import argparse
@@ -260,6 +265,22 @@ def device_ms(torch, fn, runs: int = 20):
     return total / runs / 1e3 if total > 0 else None
 
 
+def host_ms(torch, fn, calls: int = 200) -> float:
+    """The host's time per call of fn(): `calls` calls enqueued back to
+    back on the host clock, before the card is waited for (a few hundred
+    launches stay inside the launch queue, so the host never waits for
+    the card here)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
+
+
 def bound_ms(card: dict, nbytes: float, alu_ops: float = 0.0,
              popc_ops: float = 0.0, f32_ops: float = 0.0,
              int8_mma_ops: float = 0.0) -> tuple[float, str]:
@@ -335,11 +356,15 @@ def _max_abs(torch, a, b) -> float:
 
 def _select_split(torch, vals, gidx, k: int, largest: bool) -> dict:
     """A fused function's selection share: the selection kernel alone on
-    the function's own candidates, and torch.topk over the same
-    candidates (the selection half's library yardstick)."""
+    the function's own candidates (CUDA events and card time), and
+    torch.topk over the same candidates (the selection half's library
+    yardstick)."""
     from ucfp_tpu_torch.ops import fused_scan as fs
 
-    return {"select_ms": time_ms(torch, lambda: fs._select_cuda(vals, gidx, k, largest)),
+    def select():
+        return fs._select_cuda(vals, gidx, k, largest)
+
+    return {"select_ms": time_ms(torch, select), "select_device_ms": device_ms(torch, select),
             "select_library_ms": time_ms(torch, lambda: torch.topk(
                 vals, k, dim=1, largest=largest))}
 
@@ -475,7 +500,8 @@ def phase_kernels(torch, dev, card: dict) -> dict:
     for c in SKETCH_KERNEL_ROWS:
         _kernels_sketch(torch, dev, card, g, c, results)
     results["hamming1"] = []
-    # and at the bench's fused Hamming key, 9,994,240 x 64-bit (610 tiles)
+    # and at the bench's fused Hamming key, 9,994,240 x 64-bit (305 tiles of
+    # 256 x 128 rows: 39,040 candidates)
     for c, w, ties in ((1 << 20, 2, False), (1 << 23, 2, False), (1 << 20, 16, False),
                        (1 << 23, 16, False), (1 << 20, 2, True), (1 << 23, 16, True),
                        (BENCH_X64_ROWS, 2, False)):
@@ -707,58 +733,95 @@ def _kernels_scores1(torch, dev, card: dict, g, c: int, results: dict) -> None:
 
 
 # the selection kernel's phase-3 sizes: #3's candidates at 2^22 rows, the
-# int4 batch pool's at 9,994,240 / 256 (39,040), and #7 / #8's at the
-# bench's 10M x 64 (78,080); k = 20,000 is above its shared-memory sort
+# int4 batch pool's at 9,994,240 / 256 and #6's at the bench's 9,994,240 x
+# 64-bit (39,040), and #7 / #8's at the bench's 10M x 64 (78,080); k =
+# 20,000 is above its shared-memory sort. The cluster path is also held at
+# an N that neither cluster size divides.
 SELECT_NS = (16384, 39040, 78080)
+SELECT_CLUSTER_NS = (*SELECT_NS, 39043)
 SELECT_KS = (1, 10, 640, 2048, 20000)
+# the path sweep: one block per query against a cluster of 8 CTAs per
+# query, from N below the cluster threshold up to #7's candidates
+SELECT_SWEEP_NS = (2048, 8192, 12288, 16384, 24576, 32768, 39040, 78080)
+SELECT_SWEEP_KS = (10, 2048)
+
+
+def _select_case(torch, dev, g, q: int, n: int, dtype, kind: str):
+    """[q, n] candidate values of one kind: random, all zeros, 7 values
+    repeated everywhere, a mix of +-0.0 and +-inf (floats), or "straddle":
+    random values with a run of 16 equal best (+4.0) values across a rank
+    boundary of the 8-CTA cluster and a run of 16 equal worst (-4.0) across
+    one of the 16-CTA cluster, per query another boundary, so the ties the
+    answer takes are split between two ranks."""
+    if dtype == torch.int32:
+        hi = {"random": 1 << 30, "zeros": 1, "repeats": 40, "straddle": 1 << 30}[kind]
+        vals = torch.randint(0, hi, (q, n), generator=g, device=dev, dtype=torch.int32)
+    else:
+        vals = torch.randn((q, n), generator=g, device=dev)
+        if kind == "zeros":
+            vals.zero_()
+        elif kind == "repeats":
+            vals = vals[:, :7][:, torch.randint(0, 7, (n,), generator=g, device=dev)]
+        elif kind == "signed":
+            pick = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 1.5, -1.5], device=dev)
+            vals = pick[torch.randint(0, len(pick), (q, n), generator=g, device=dev)]
+    if kind == "straddle":
+        best, worst = ((1 << 30) + 4, -4) if dtype == torch.int32 else (4.0, -4.0)
+        for qi in range(q):
+            b8 = -(-n // 8) * (1 + qi % 7)
+            b16 = -(-n // 16) * (1 + qi % 15)
+            vals[qi, b8 - 8:b8 + 8] = best
+            vals[qi, b16 - 8:b16 + 8] = worst
+    return vals.to(dtype).contiguous()
 
 
 def _kernels_select(torch, dev, card: dict, g, results: dict) -> None:
     """The shared selection kernel (select_topk) against the stable sort
     (fused_scan._select_plain), values and indices bit-equal: N = 16,384,
-    39,040 and 78,080 candidates, Q = 1 and 64 (and 5 at 39,040), k from 1
-    to N, largest and smallest first, f32, bf16 and int32 values, on random
-    values, all zeros, a few values repeated in and across tiles, and a
-    mix of +-0.0 and +-inf. Then at Q = 1 its time beside torch.topk over
-    the same candidates, the stable sort's, and the bound."""
+    39,040, 78,080 and 39,043 candidates, Q = 1, 2 and 5 on every path (the
+    path the kernel picks, one block per query, and a cluster of 8 CTAs per
+    query) and Q = 64 on the path it picks (one block per query), k from 1
+    to N, largest and smallest first, f32, bf16 and int32 values, on the
+    kinds of _select_case. Then at Q = 1 its time beside torch.topk over
+    the same candidates, the stable sort's, and the bound, and the path
+    sweep (Q = 1 and 16) that sets the cluster threshold (csrc/select.cu
+    CLUSTER_MIN_N)."""
     from ucfp_tpu_torch.ops import fused_scan as fs
 
-    results["select"] = []
-    pick = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 1.5, -1.5], device=dev)
-    for n in SELECT_NS:
-        for q in (1, 5, 64) if n == 39040 else (1, 64):
+    results["select"], results["select_paths"] = [], []
+    info = fs.select_cluster_info()
+    results["select_info"] = [info]
+    check(info["resident"] >= 1, f"the card schedules a cluster of 8 CTAs: {info}")
+    try:  # a cluster size the kernel has no path for raises
+        fs._select_cuda(torch.zeros((1, 16384), device=dev),
+                        torch.zeros((1, 16384), device=dev, dtype=torch.int32), 10, True, 16)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised, "select_topk raises on a cluster size it does not take")
+    for n in SELECT_CLUSTER_NS:
+        for q in (1, 2, 5, 64) if n in SELECT_NS else (1, 2, 5):
+            paths = (-1, 0, 8) if q <= 5 else (-1,)
             gidx = torch.randint(0, 1 << 30, (q, n), generator=g, device=dev,
                                  dtype=torch.int32)
             for dtype in (torch.float32, torch.bfloat16, torch.int32):
-                for kind in ("random", "zeros", "repeats", "signed"):
-                    if dtype == torch.int32:
-                        if kind == "signed":
-                            continue
-                        hi = {"random": 1 << 30, "zeros": 1, "repeats": 40}[kind]
-                        vals = torch.randint(0, hi, (q, n), generator=g, device=dev,
-                                             dtype=torch.int32)
-                    else:
-                        vals = torch.randn((q, n), generator=g, device=dev)
-                        if kind == "zeros":
-                            vals.zero_()
-                        elif kind == "repeats":
-                            vals = vals[:, :7][:, torch.randint(0, 7, (n,), generator=g,
-                                                                device=dev)]
-                        elif kind == "signed":
-                            vals = pick[torch.randint(0, len(pick), (q, n), generator=g,
-                                                      device=dev)]
-                        vals = vals.to(dtype).contiguous()
+                for kind in ("random", "zeros", "repeats", "signed", "straddle"):
+                    if dtype == torch.int32 and kind == "signed":
+                        continue
+                    vals = _select_case(torch, dev, g, q, n, dtype, kind)
                     for largest in (True, False):
                         for k in (*SELECT_KS, n // 2, n):
                             if k > n:
                                 continue
-                            vk, ik = fs._select_cuda(vals, gidx, k, largest)
-                            torch.cuda.synchronize()
                             vp, ip = fs._select_plain(vals, gidx, k, largest)
-                            check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
-                                  f"select_topk bit-equal n={n} q={q} {dtype} {kind} "
-                                  f"largest={largest} k={k}")
+                            for path in paths:
+                                vk, ik = fs._select_cuda(vals, gidx, k, largest, path)
+                                torch.cuda.synchronize()
+                                check(_same_bits(torch, vk, vp) and torch.equal(ik, ip),
+                                      f"select_topk bit-equal n={n} q={q} {dtype} {kind} "
+                                      f"largest={largest} k={k} path={path}")
             del vals, gidx
+    for n in SELECT_NS:
         vals = torch.randn((1, n), generator=g, device=dev)
         gidx = torch.randint(0, 1 << 30, (1, n), generator=g, device=dev, dtype=torch.int32)
         for k in (k for k in SELECT_KS[1:] if k <= n):
@@ -779,6 +842,19 @@ def _kernels_select(torch, dev, card: dict, g, results: dict) -> None:
                 "library_device_ms": device_ms(torch, lambda: torch.topk(vals, k, dim=1)),
                 "bound_ms": b, "bound_by": by,
             })
+    # Q = 1 over every N, and Q = 16 (the most the cluster path takes on
+    # 132 SMs) over #6's and #7's candidates
+    for q, n in (*((1, n) for n in SELECT_SWEEP_NS), (16, 39040), (16, 78080)):
+        vals = torch.randn((q, n), generator=g, device=dev)
+        gidx = torch.randint(0, 1 << 30, (q, n), generator=g, device=dev, dtype=torch.int32)
+        for k in SELECT_SWEEP_KS:
+            row = {"q": q, "n": n, "k": k}
+            for path, name in ((0, "one_block"), (8, "cluster")):
+                def run(path=path):
+                    return fs._select_cuda(vals, gidx, k, True, path)
+                row[f"{name}_ms"] = time_ms(torch, run)
+                row[f"{name}_device_ms"] = device_ms(torch, run)
+            results["select_paths"].append(row)
     torch.cuda.empty_cache()
 
 
@@ -1272,7 +1348,9 @@ def _kernels_hamming1(torch, dev, card: dict, g, k: int, c: int, w: int, ties: b
     results["hamming1"].append({
         "c": c, "w": w, "ties": ties, "max_abs_err": _max_abs(torch, dk, dp),
         "ms": time_ms(torch, lambda: fs.hamming_topk_fused(q, db, k)),
+        "device_ms": device_ms(torch, lambda: fs.hamming_topk_fused(q, db, k)),
         "cells_ms": time_ms(torch, lambda: fs._hamming1_cells_cuda(q, db)),
+        "cells_device_ms": device_ms(torch, lambda: fs._hamming1_cells_cuda(q, db)),
         **_select_split(torch, *cells_k, k, False),
         "plain_ms": time_ms(torch, lambda: fs.hamming_topk_fused_plain(q, db, k)),
         "library_ms": None, "bound_ms": b, "bound_by": by,
@@ -1360,7 +1438,9 @@ def _kernels_cosine_int8(torch, dev, card: dict, g, results: dict) -> None:
         results["cosine_i8"].append({
             "c": c, "d": d, "ties": ties, "max_abs_err": err,
             "ms": time_ms(torch, lambda: fs.cosine_int8_topk_fused(q, db, rn, k)),
+            "device_ms": device_ms(torch, lambda: fs.cosine_int8_topk_fused(q, db, rn, k)),
             "cells_ms": time_ms(torch, lambda: fs._cosine_i8_cells_cuda(q, db, rn)),
+            "cells_device_ms": device_ms(torch, lambda: fs._cosine_i8_cells_cuda(q, db, rn)),
             **_select_split(torch, *fs._cosine_i8_cells_cuda(q, db, rn), k, True),
             "plain_ms": time_ms(torch, lambda: fs.cosine_int8_topk_fused_plain(q, db, rn, k)),
             "library_ms": time_ms(torch, lambda: fs.cosine_int8_topk_hybrid(q, db, rn, k)),
@@ -2731,11 +2811,16 @@ def phase_bench(torch, dev) -> dict:
 
 def phase_ab(torch, dev) -> dict:
     """Times only, no checks: #13 at Q = 1, 2, 32 and 64 (bf16) and #4 / #5
-    (the function and its cells, Q = 1 and 32) at 2^22 x 768 rows, on random
-    inputs from a seed, through wrappers that every checkout since the int2
-    tier has. A parent's checkout runs the same code when this file is
-    copied into it: `python3 chip_smoke.py --phases device,build,ab` in
-    each tree, in turns, in one call."""
+    (the function and its cells, Q = 1 and 32) at 2^22 x 768 rows; #6 at
+    2^20 x 2 and 9,994,240 x 2 words, #7 at 9,994,240 x 64 (k = 10), and
+    the selection at one query over 39,040 and 78,080 candidates (k = 10
+    and 2048), these four also by the host's time per call (host_ms); on
+    random inputs from a seed, through wrappers that every
+    checkout since the selection kernel has (fs.hamming_topk_fused,
+    fs.cosine_int8_topk_fused, fs._select_cuda(vals, gidx, k, largest)). A
+    parent's checkout runs the same code when this file is copied into it:
+    `python3 chip_smoke.py --phases device,build,ab` in each tree, in
+    turns, in one call."""
     from ucfp_tpu_torch.ops import fused_scan as fs
     from ucfp_tpu_torch.ops import int2_scan as i2
     from ucfp_tpu_torch.ops import knn
@@ -2776,6 +2861,36 @@ def phase_ab(torch, dev) -> dict:
                                "cells_ms": time_ms(torch, cells),
                                "cells_device_ms": device_ms(torch, cells)}
         del dots
+    del rn
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        return {"ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn),
+                "host_ms": host_ms(torch, fn)}
+
+    # #6 at a shard of the sharded pHash path and at the bench's 10M x 64-bit
+    for rows in (1 << 20, BENCH_X64_ROWS):
+        db = torch.randint(-2**31, 2**31, (rows, 2), generator=g, device=dev,
+                           dtype=torch.int32)
+        q = db[7] ^ 1
+        out[f"hamming_topk_fused_c{rows}_w2"] = timed(lambda: fs.hamming_topk_fused(q, db, 10))
+        del db
+    # #7 at the bench's 10M x 64
+    db8 = torch.randint(-128, 128, (BENCH_X64_ROWS, 64), generator=g, device=dev,
+                        dtype=torch.int8)
+    rn8 = torch.rand(BENCH_X64_ROWS, generator=g, device=dev) * 1000 + 1
+    q8 = db8[7].clone()
+    out[f"cosine_int8_topk_fused_c{BENCH_X64_ROWS}_d64"] = timed(
+        lambda: fs.cosine_int8_topk_fused(q8, db8, rn8, 10))
+    del db8, rn8
+    torch.cuda.empty_cache()
+    # the selection at one query over #6's and #7's candidate counts
+    for n in (39040, 78080):
+        vals = torch.randn((1, n), generator=g, device=dev)
+        gidx = torch.randint(0, 1 << 30, (1, n), generator=g, device=dev, dtype=torch.int32)
+        for kk in (10, 2048):
+            out[f"select_topk_n{n}_k{kk}"] = timed(
+                lambda: fs._select_cuda(vals, gidx, kk, True))
     say("ab: " + json.dumps(out))
     return out
 
@@ -2847,7 +2962,7 @@ def _findings_line(kernels: dict, served: list) -> dict:
          **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          # the fused scans' two halves: cells kernel and selection
          **{f: row[f] for f in ("cells_ms", "select_ms", "device_ms", "cells_device_ms",
-                                "blocks_per_sm") if f in row},
+                                "select_device_ms", "blocks_per_sm") if f in row},
          "shape": {**shape, **({"c": row["c"]} if "c" in row else {"n": row["n"]})}}
         for name, path, line, key, row, shape in rows
     ]}

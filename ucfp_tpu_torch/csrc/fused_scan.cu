@@ -80,12 +80,19 @@
 // the sharded Hamming path runs: one query, no validity mask, tiles of 256
 // rows x 128 lanes (pallas_scan.ROWS_PER_TILE, twice the batched kernel's
 // tile). Bound: device memory -- it reads each row's 4W bytes once and does
-// W popcounts per row, a quarter of the bytes' time at W = 2. Design: the
-// scores kernel's shape (one block per tile; 128 lanes x 8 row groups of 32
-// rows, so a warp reads 32 consecutive rows per step and a block keeps 1,024
-// loads in flight), the query in registers, a strict '<' inside a group and
-// the group winners merged in row order, so the first row of the minimum
-// wins as in _lane_argbest.
+// W popcounts per row, a quarter of the bytes' time at W = 2 (8 MB, 2.5 us
+// at 2^20 rows; 80 MB, 24 us at 9,994,240). Design: a block of 8 warps per
+// (tile, 32-lane quarter), so 2^20 rows give 128 blocks for the 132 SMs
+// (one block per tile left 100 of them idle) and 9,994,240 rows 1,220
+// small blocks that the block scheduler spreads evenly (a tile per block
+// gave 305 blocks of 1,024 threads, 2.3 waves whose last ran 31% full).
+// Warp g walks rows [32g, 32g + 32) of the tile, its 32 lanes side by side,
+// so a warp's load is 32 adjacent rows (256 contiguous bytes at W = 2);
+// up to 8 rows' loads are issued before their popcounts. Each thread keeps
+// min((distance << 8) | row): the smallest distance, then the lowest row,
+// and the warps' minima merge the same way, as in _lane_argbest.
+// ucfp_hamming_topk launches it and the selection (csrc/select.cu) from
+// one host call.
 //
 // Every entry point has a plain C interface (loaded with ctypes), launch
 // on the caller's stream, allocate nothing, and return cudaGetLastError().
@@ -431,55 +438,49 @@ void launch_hamming(const uint32_t* queries, int q, const uint32_t* db, const ui
 }
 
 constexpr int HAM1_TILE_ROWS = 256;  // pallas_scan.ROWS_PER_TILE
-constexpr int HAM1_GROUPS = 8;       // row groups per block
+constexpr int HAM1_LANES = 32;       // lanes per block: one warp's rows side by side
+constexpr int HAM1_QUARTERS = LANES / HAM1_LANES;
+constexpr int HAM1_GROUPS = 8;       // warps per block, each a run of rows
 constexpr int HAM1_GROUP_ROWS = HAM1_TILE_ROWS / HAM1_GROUPS;
 
 template <int W>
-__global__ void __launch_bounds__(LANES * HAM1_GROUPS)
+__global__ void __launch_bounds__(HAM1_LANES * HAM1_GROUPS)
 hamming1_cells_kernel(const uint32_t* __restrict__ query, const uint32_t* __restrict__ db,
                       int* __restrict__ dist_out, int* __restrict__ idx_out) {
-  const int lane = threadIdx.x;
+  constexpr int R = W <= 2 ? 8 : W <= 4 ? 4 : W <= 8 ? 2 : 1;  // rows in flight a thread
+  const int x = threadIdx.x;
+  const int lane = (int)(blockIdx.x % HAM1_QUARTERS) * HAM1_LANES + x;
   const int group = threadIdx.y;
-  const int t = blockIdx.x;
+  const long long t = blockIdx.x / HAM1_QUARTERS;
   uint32_t q[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) q[w] = __ldg(query + w);
 
   const int r0 = group * HAM1_GROUP_ROWS;
-  int best = 0x7fffffff;
-  int best_r = r0;
-#pragma unroll 4
-  for (int r = 0; r < HAM1_GROUP_ROWS; ++r) {
-    const long long row = ((long long)t * HAM1_TILE_ROWS + r0 + r) * LANES + lane;
-    uint32_t rw[W];
-    load_row<W>(db + row * W, rw);
-    int d = 0;
+  const uint32_t* p = db + ((t * HAM1_TILE_ROWS + r0) * LANES + lane) * W;
+  int best = 0x7fffffff;  // (distance << 8) | row; a distance is at most 512
+  for (int r = 0; r < HAM1_GROUP_ROWS; r += R) {
+    uint32_t rw[R][W];
 #pragma unroll
-    for (int w = 0; w < W; ++w) d += __popc(q[w] ^ rw[w]);
-    if (d < best) {
-      best = d;
-      best_r = r0 + r;
+    for (int j = 0; j < R; ++j) load_row<W>(p + (long long)(r + j) * LANES * W, rw[j]);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      int d = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) d += __popc(q[w] ^ rw[j][w]);
+      best = min(best, (d << 8) | (r0 + r + j));
     }
   }
 
-  __shared__ int s_val[HAM1_GROUPS][LANES];
-  __shared__ int s_row[HAM1_GROUPS][LANES];
-  s_val[group][lane] = best;
-  s_row[group][lane] = best_r;
+  __shared__ int s_best[HAM1_GROUPS][HAM1_LANES];
+  s_best[group][x] = best;
   __syncthreads();
   if (group != 0) return;
-  // groups hold ascending row ranges: a strict comparison keeps the
-  // earliest group's (lowest) row on ties
-  for (int g = 1; g < HAM1_GROUPS; ++g) {
-    const int v = s_val[g][lane];
-    if (v < best) {
-      best = v;
-      best_r = s_row[g][lane];
-    }
-  }
-  const long long out = (long long)t * LANES + lane;
-  dist_out[out] = best;
-  idx_out[out] = (t * HAM1_TILE_ROWS + best_r) * LANES + lane;
+#pragma unroll
+  for (int g = 1; g < HAM1_GROUPS; ++g) best = min(best, s_best[g][x]);
+  const long long out = t * LANES + lane;
+  dist_out[out] = best >> 8;
+  idx_out[out] = (int)((t * HAM1_TILE_ROWS + (best & 0xff)) * LANES + lane);
 }
 
 }  // namespace
@@ -558,13 +559,13 @@ extern "C" int ucfp_hamming_topk_cells(const uint32_t* query, int w, const uint3
   if (w < 1 || w > MAX_WORDS || c <= 0 || c % (HAM1_TILE_ROWS * LANES) != 0 ||
       c > (1LL << 31))  // int32 row indices
     return (int)cudaErrorInvalidValue;
-  const int tiles = (int)(c / (HAM1_TILE_ROWS * LANES));
-  const dim3 block(LANES, HAM1_GROUPS);
+  const long long blocks = c / (HAM1_TILE_ROWS * LANES) * HAM1_QUARTERS;
+  const dim3 block(HAM1_LANES, HAM1_GROUPS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w) {
 #define UCFP_HAMMING1_CASE(N) \
   case N:                     \
-    hamming1_cells_kernel<N><<<tiles, block, 0, s>>>(query, db, dist, idx); \
+    hamming1_cells_kernel<N><<<(unsigned)blocks, block, 0, s>>>(query, db, dist, idx); \
     break;
     UCFP_HAMMING1_CASE(1) UCFP_HAMMING1_CASE(2) UCFP_HAMMING1_CASE(3) UCFP_HAMMING1_CASE(4)
     UCFP_HAMMING1_CASE(5) UCFP_HAMMING1_CASE(6) UCFP_HAMMING1_CASE(7) UCFP_HAMMING1_CASE(8)
@@ -573,6 +574,19 @@ extern "C" int ucfp_hamming_topk_cells(const uint32_t* query, int w, const uint3
 #undef UCFP_HAMMING1_CASE
   }
   return (int)cudaGetLastError();
+}
+
+// #6 whole: the cells, then the selection over them (int32 distances,
+// smallest first), from one host call; dist / idx hold the cells, scratch
+// as ucfp_select_topk's
+extern "C" int ucfp_hamming_topk(const uint32_t* query, int w, const uint32_t* db, long long c,
+                                 int k, int* dist, int* idx, int* out_dist, int* out_idx,
+                                 void* scratch, void* stream) {
+  const int rc = ucfp_hamming_topk_cells(query, w, db, c, dist, idx, stream);
+  if (rc != 0) return rc;
+  // the selection's value kind 2: int32
+  return ucfp_select_topk(dist, idx, 2, 1, (int)(c / HAM1_TILE_ROWS), k, 0, out_dist, out_idx,
+                          scratch, stream);
 }
 
 extern "C" int ucfp_dots_norm_cells(const int* dots, int q, long long c, const float* row_norm,

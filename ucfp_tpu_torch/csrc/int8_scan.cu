@@ -11,16 +11,24 @@
 // reaches it (_lane_argbest). Bound: device memory -- it reads each row's D
 // bytes and its 4-byte norm once (at 9,994,240 x 64, 679.6 MB: 0.203 ms at
 // 3.35 TB/s); the D/4 __dp4a per row issue far below that. It takes D = 64,
-// the width the bench runs and the GPU smoke test holds. Design: one
-// block per tile, 128 lanes x 8 row groups of 16 rows, the query in
-// registers, each row's D bytes as D/16 16-byte loads and D/4 __dp4a, the
-// group's argbest in registers with a strict '>' over ascending rows, the
-// 8 group winners merged in row order through shared memory. Adjacent
-// lanes read adjacent rows (D bytes apart): a warp's first 16-byte load
-// brings each row's sector into L1 and the row's later loads hit it. The
-// division stays IEEE (no --use_fast_math, no reciprocal) and the
-// conversion __int2float_rn, so the scores equal the reference's bit for
-// bit.
+// the width the bench runs and the GPU smoke test holds. Design: one warp
+// per (tile, 32-lane quarter) -- 2,440 one-warp blocks at 9,994,240 rows,
+// which the block scheduler spreads over the 132 SMs within a block each
+// (a tile per 1,024-thread block gave 610 blocks, 2.3 waves, the last 31%
+// full). Four threads share a 64-byte row, so each load instruction of a
+// warp reads 8 rows, 512 contiguous bytes, and four of them read the
+// quarter's 32 rows of one tile row r (a lane reading its own row as four
+// 16-byte loads scattered a warp's load over 32 rows 64 bytes apart, half
+// of every fetched sector waiting in L1). A shuffle reduce-scatter over the
+// four threads of a row (3 shuffles for 4 rows) leaves each thread one
+// row's whole dot: thread x ends with lane 8 (x % 4) + x / 4 of the quarter,
+// the same lane at every r, so the cell's argbest stays in its registers
+// with a strict '>' over ascending r and needs no merge. Four tile rows'
+// loads (8 KB a warp) are issued before their dots. The division stays
+// IEEE (no --use_fast_math, no reciprocal) and the conversion
+// __int2float_rn, so the scores equal the reference's bit for bit.
+// ucfp_cosine_i8_topk launches it and the selection (csrc/select.cu) from
+// one host call.
 //
 // ucfp_cosine_i8_mxu_cells replaces pallas_scan.cosine_int8_topk_mxu
 // (_cosine_i8_mxu_kernel, pallas_scan.py:682). The catalog is read as
@@ -41,7 +49,7 @@
 // by (dot, lowest line). s8 mma.sync / wgmma would not move a bytes-bound
 // scan and is left for later.
 //
-// Both entry points have a plain C interface (loaded with ctypes), launch
+// Every entry point has a plain C interface (loaded with ctypes), launch
 // on the caller's stream, allocate nothing, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -53,10 +61,10 @@ namespace {
 
 constexpr int LANES = 128;
 constexpr int COS_TILE_ROWS = 128;  // pallas_scan.ROWS_PER_TILE_C
-constexpr int COS_GROUPS = 8;       // row groups per block
-constexpr int COS_GROUP_ROWS = COS_TILE_ROWS / COS_GROUPS;
-constexpr int COS_DIM = 64;         // row width: the query stays in registers
+constexpr int COS_QUARTERS = LANES / 32;  // one warp per (tile, 32 lanes)
+constexpr int COS_DIM = 64;         // row width: a row is four 16-byte pieces
 constexpr int COS_VECS = COS_DIM / 16;  // 16-byte chunks per row
+constexpr int COS_STEP = 4;         // tile rows whose loads a warp issues together
 constexpr int SUB = 8;              // pallas_scan.SUB: segments per line tile
 constexpr int LINE_BYTES = 128;
 constexpr int LINES_PER_STEP = 4;   // a warp reads 4 lines of 8 x 16 bytes
@@ -69,53 +77,49 @@ __device__ __forceinline__ int dot16(const int4 a, const int4 b, int acc) {
   return __dp4a(a.w, b.w, acc);
 }
 
-__device__ __forceinline__ float cosine_score(const int4* __restrict__ db,
-                                              const float* __restrict__ row_norm,
-                                              const int4 (&qv)[COS_VECS], long long row) {
-  const int4* p = db + row * COS_VECS;
-  int acc = 0;
-#pragma unroll
-  for (int i = 0; i < COS_VECS; ++i) acc = dot16(__ldg(p + i), qv[i], acc);
-  return __int2float_rn(acc) / fmaxf(__ldg(row_norm + row), NORM_FLOOR);
-}
-
-__global__ void __launch_bounds__(LANES * COS_GROUPS)
+__global__ void __launch_bounds__(32)
 cosine_i8_cells_kernel(const int4* __restrict__ q, const int4* __restrict__ db,
                        const float* __restrict__ row_norm, float* __restrict__ best_out,
                        int* __restrict__ idx_out) {
-  const int lane = threadIdx.x;
-  const int group = threadIdx.y;
-  const long long t = blockIdx.x;
-  int4 qv[COS_VECS];
+  constexpr unsigned FULL = 0xffffffffu;
+  const int x = threadIdx.x;
+  const int piece = x & 3;  // the 16-byte piece of a row this thread loads
+  const bool b1 = piece & 2, b0 = piece & 1;
+  const long long t = blockIdx.x / COS_QUARTERS;
+  const int lane0 = (int)(blockIdx.x % COS_QUARTERS) * 32;
+  const int lane = lane0 + 8 * piece + (x >> 2);  // the row whose whole dot x ends with
+  const int4 qv = __ldg(q + piece);
+  // load j of tile row r: piece x of the 8 rows lane0 + 8j ... lane0 + 8j + 7
+  const int4* rows = db + (t * COS_TILE_ROWS * LANES + lane0) * COS_VECS + x;
+  const float* norms = row_norm + t * COS_TILE_ROWS * LANES + lane;
+
+  float best = -INFINITY;
+  int best_r = 0;
+  for (int r0 = 0; r0 < COS_TILE_ROWS; r0 += COS_STEP) {
+    int4 v[COS_STEP][COS_VECS];
+    float nr[COS_STEP];
 #pragma unroll
-  for (int i = 0; i < COS_VECS; ++i) qv[i] = __ldg(q + i);
-
-  const int r0 = group * COS_GROUP_ROWS;
-  const long long row0 = (t * COS_TILE_ROWS + r0) * LANES + lane;
-  float best = cosine_score(db, row_norm, qv, row0);
-  int best_r = r0;
-#pragma unroll 4
-  for (int r = 1; r < COS_GROUP_ROWS; ++r) {
-    const float s = cosine_score(db, row_norm, qv, row0 + (long long)r * LANES);
-    if (s > best) {
-      best = s;
-      best_r = r0 + r;
+    for (int s = 0; s < COS_STEP; ++s) {
+#pragma unroll
+      for (int j = 0; j < COS_VECS; ++j)
+        v[s][j] = __ldg(rows + (long long)(r0 + s) * LANES * COS_VECS + j * 32);
+      nr[s] = __ldg(norms + (long long)(r0 + s) * LANES);
     }
-  }
-
-  __shared__ float s_val[COS_GROUPS][LANES];
-  __shared__ int s_row[COS_GROUPS][LANES];
-  s_val[group][lane] = best;
-  s_row[group][lane] = best_r;
-  __syncthreads();
-  if (group != 0) return;
-  // groups hold ascending row ranges: a strict comparison keeps the
-  // earliest group's (lowest) row on ties
-  for (int g = 1; g < COS_GROUPS; ++g) {
-    const float v = s_val[g][lane];
-    if (v > best) {
-      best = v;
-      best_r = s_row[g][lane];
+#pragma unroll
+    for (int s = 0; s < COS_STEP; ++s) {
+      int pd[COS_VECS];  // this piece's partial dot with rows 8j + x / 4
+#pragma unroll
+      for (int j = 0; j < COS_VECS; ++j) pd[j] = dot16(v[s][j], qv, 0);
+      // reduce-scatter over the row's 4 threads: keep the half of the rows
+      // named by piece bit 1 (xor 2), then the row named by bit 0 (xor 1)
+      const int a0 = (b1 ? pd[2] : pd[0]) + __shfl_xor_sync(FULL, b1 ? pd[0] : pd[2], 2);
+      const int a1 = (b1 ? pd[3] : pd[1]) + __shfl_xor_sync(FULL, b1 ? pd[1] : pd[3], 2);
+      const int dot = (b0 ? a1 : a0) + __shfl_xor_sync(FULL, b0 ? a0 : a1, 1);
+      const float sc = __int2float_rn(dot) / fmaxf(nr[s], NORM_FLOOR);
+      if (sc > best) {  // rows ascending: '>' keeps the first
+        best = sc;
+        best_r = r0 + s;
+      }
     }
   }
   const long long out = t * LANES + lane;
@@ -178,11 +182,28 @@ extern "C" int ucfp_cosine_i8_cells(const void* q8, int d, const void* db8, long
   if (d != COS_DIM || c <= 0 || c % (COS_TILE_ROWS * LANES) != 0 ||
       c > (1LL << 31))  // int32 row indices
     return (int)cudaErrorInvalidValue;
-  const int tiles = (int)(c / (COS_TILE_ROWS * LANES));
-  const dim3 block(LANES, COS_GROUPS);
-  cosine_i8_cells_kernel<<<tiles, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = c / (COS_TILE_ROWS * LANES) * COS_QUARTERS;
+  cosine_i8_cells_kernel<<<(unsigned)blocks, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(q8), static_cast<const int4*>(db8), row_norm, best, idx);
   return (int)cudaGetLastError();
+}
+
+// csrc/select.cu: the top-k selection over [q, n] candidates
+extern "C" int ucfp_select_topk(const void* vals, const int* gidx, int kind, int q, int n, int k,
+                                int largest, void* out_val, int* out_idx, void* scratch,
+                                void* stream);
+
+// #7 whole: the cells, then the selection over them (float32, largest
+// first), from one host call; best / idx hold the cells, scratch as
+// ucfp_select_topk's
+extern "C" int ucfp_cosine_i8_topk(const void* q8, int d, const void* db8, long long c,
+                                   const float* row_norm, int k, float* best, int* idx,
+                                   float* out_val, int* out_idx, void* scratch, void* stream) {
+  const int rc = ucfp_cosine_i8_cells(q8, d, db8, c, row_norm, best, idx, stream);
+  if (rc != 0) return rc;
+  // the selection's value kind 0: float32
+  return ucfp_select_topk(best, idx, 0, 1, (int)(c / COS_TILE_ROWS), k, 1, out_val, out_idx,
+                          scratch, stream);
 }
 
 extern "C" int ucfp_cosine_i8_mxu_cells(const void* q8, int d, const void* db8,

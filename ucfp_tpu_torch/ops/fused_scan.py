@@ -38,8 +38,10 @@ t*128 + lane (the reference's moveaxis/reshape order, NOT global row
 order) and keeps the first k of a stable sort, so ties keep the lower
 position exactly as lax.top_k does: on the card a kernel of its own
 (select_topk, csrc/select.cu: radix select of a unique composite key,
-then a sort of the k winners; #1 and #3 launch it with their cells
-kernel from one host call), on the CPU the stable sort itself. Every
+then a sort of the k winners; one block per query, or for a few queries
+over many candidates a thread-block cluster per query, whose partition
+_select_cluster_plain mirrors; #1, #3, #6 and #7 launch it with their
+cells kernel from one host call), on the CPU the stable sort itself. Every
 `*_plain` wrapper selects with the stable sort on any device, so the
 card's selection is held against it too. Beside each kernel sits its
 plain PyTorch version (`*_plain`): the CPU path, and the yardstick the
@@ -51,6 +53,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -87,9 +90,10 @@ def reset_launch_counts() -> None:
             LAUNCHES[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(*names: str) -> None:
     with _count_lock:
-        LAUNCHES[name] += 1
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 _lib = None
@@ -118,12 +122,18 @@ def _kernels():
         lib.ucfp_cosine_i8_cells.argtypes = [p, i, p, ll, p, p, p, p]
         lib.ucfp_cosine_i8_mxu_cells.restype = i
         lib.ucfp_cosine_i8_mxu_cells.argtypes = [p, i, p, ll, i, p, p, p]
-        lib.ucfp_select_topk.restype = i
-        lib.ucfp_select_topk.argtypes = [p, p, i, i, i, i, i, p, p, p, p]
+        lib.ucfp_select_topk_path.restype = i
+        lib.ucfp_select_topk_path.argtypes = [p, p, i, i, i, i, i, p, p, p, i, p]
+        lib.ucfp_select_cluster_info.restype = i
+        lib.ucfp_select_cluster_info.argtypes = [ctypes.POINTER(i)]
         lib.ucfp_select_scratch.restype = ll
         lib.ucfp_select_scratch.argtypes = [i, i]
         lib.ucfp_scores_topk.restype = i
         lib.ucfp_scores_topk.argtypes = [p, i, i, i, ll, i, p, p, p, p, p, p]
+        lib.ucfp_hamming_topk.restype = i
+        lib.ucfp_hamming_topk.argtypes = [p, i, p, ll, i, p, p, p, p, p, p]
+        lib.ucfp_cosine_i8_topk.restype = i
+        lib.ucfp_cosine_i8_topk.argtypes = [p, i, p, ll, p, i, p, p, p, p, p, p]
         _lib = lib
     return _lib
 
@@ -225,9 +235,19 @@ def _scores_topk_cuda(scores: torch.Tensor, k: int, largest: bool, name: str):
         None if scratch is None else scratch.data_ptr(), _stream_ptr(scores),
     )
     _check(rc, name)
-    _count(name)
-    _count("select_topk")
+    _count(name, "select_topk")
     return out_v, out_i
+
+
+def _one_call_out(n: int, k: int, device):
+    """One int32 allocation for a one-query fused function's n cells and
+    its k outputs: (cells' value and index pointers, outputs' value and
+    index tensors). The outputs' values are int32 views, to be viewed as
+    the function's value type."""
+    cells, out_v, out_i = torch.empty(2 * (n + k), dtype=torch.int32,
+                                      device=device).split((2 * n, k, k))
+    ptr = cells.data_ptr()
+    return (ptr, ptr + 4 * n), out_v, out_i
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -302,15 +322,18 @@ def _hamming1_cells_plain(query: torch.Tensor, db: torch.Tensor):
     return _scores_cells_plain(d.to(torch.int32)[None], largest=False)
 
 
-def _hamming1_cells_cuda(query: torch.Tensor, db: torch.Tensor):
-    c, w = db.shape
-    for name, t in (("query", query), ("db", db)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != db.device:
-            raise ValueError(f"{name} must be on {db.device}")
+def _check_hamming1_card(query: torch.Tensor, db: torch.Tensor) -> None:
+    if not (query.is_contiguous() and db.is_contiguous()):
+        raise ValueError("query and db must be contiguous")
+    if query.device != db.device:
+        raise ValueError(f"query must be on {db.device}")
     if db.data_ptr() % 16:
         raise ValueError("db must be 16-byte aligned (vector row loads)")
+
+
+def _hamming1_cells_cuda(query: torch.Tensor, db: torch.Tensor):
+    c, w = db.shape
+    _check_hamming1_card(query, db)
     tiles = c // (ROWS_PER_TILE * LANES)
     dist = torch.empty((1, tiles * LANES), dtype=torch.int32, device=db.device)
     gidx = torch.empty((1, tiles * LANES), dtype=torch.int32, device=db.device)
@@ -321,6 +344,28 @@ def _hamming1_cells_cuda(query: torch.Tensor, db: torch.Tensor):
     _check(rc, "hamming_topk_fused")
     _count("hamming_topk_fused")
     return dist, gidx
+
+
+def _hamming_topk_cuda(query: torch.Tensor, db: torch.Tensor, k: int):
+    """#6 whole: the cells kernel and the selection kernel over its cells
+    from one host call (ucfp_hamming_topk) into one allocation -> ([k]
+    int32 distances, [k] int32 indices). At one query the scan is
+    host-bound, so the host work is kept to one call."""
+    c, w = db.shape
+    dev = db.device
+    _check_hamming1_card(query, db)
+    n = c // ROWS_PER_TILE  # (tile, lane) cells
+    scratch = _select_scratch(1, n, k, dev)
+    if k == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),) * 2
+    cells, out_d, out_i = _one_call_out(n, k, dev)
+    rc = _kernels().ucfp_hamming_topk(
+        query.data_ptr(), w, db.data_ptr(), c, k, *cells, out_d.data_ptr(), out_i.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream_ptr(db),
+    )
+    _check(rc, "hamming_topk_fused")
+    _count("hamming_topk_fused", "select_topk")
+    return out_d, out_i
 
 
 def _dots_norm_cells_plain(dots: torch.Tensor, row_norm: torch.Tensor,
@@ -433,6 +478,31 @@ def _cosine_i8_cells_cuda(q8: torch.Tensor, db8: torch.Tensor,
     return best, gidx
 
 
+def _cosine_i8_topk_cuda(q8: torch.Tensor, db8: torch.Tensor,
+                         row_norm: torch.Tensor, k: int):
+    """#7 whole: the cells kernel and the selection kernel over its cells
+    from one host call (ucfp_cosine_i8_topk) into one allocation -> ([k]
+    f32, [k] int32)."""
+    name = "cosine_int8_topk_fused"
+    c, d = db8.shape
+    dev = db8.device
+    n = c // ROWS_PER_TILE_C  # (tile, lane) cells
+    scratch = _select_scratch(1, n, k, dev)
+    if k == 0:
+        return (torch.empty(0, dtype=torch.float32, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev))
+    cells, out_v, out_i = _one_call_out(n, k, dev)
+    q = _aligned16(q8)
+    rc = _kernels().ucfp_cosine_i8_topk(
+        q.data_ptr(), d, db8.data_ptr(), c, row_norm.data_ptr(), k, *cells,
+        out_v.data_ptr(), out_i.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream_ptr(db8),
+    )
+    _check(rc, name)
+    _count(name, "select_topk")
+    return out_v.view(torch.float32), out_i
+
+
 def _pick_rpt(packed_rows: int) -> int:
     """Largest sublane-aligned tile height dividing the packed row count.
     Copied from ucfp_tpu/ops/pallas_scan.py."""
@@ -512,17 +582,27 @@ def _select_plain(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool)
 _SELECT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
+@functools.lru_cache(maxsize=256)
+def _scratch_keys(q: int, k: int) -> int:
+    return _kernels().ucfp_select_scratch(q, k)
+
+
 def _select_scratch(q: int, n: int, k: int, device):
     """For the selection kernel's top k of n candidates of q queries: the
     check of k, and the device-memory scratch csrc/select.cu asks for
     (None while k fits its shared-memory sort)."""
     if k > n:
         raise ValueError(f"k={k} exceeds the {n} candidates")
-    keys = _kernels().ucfp_select_scratch(q, k)
+    keys = _scratch_keys(q, k)
     return torch.empty(keys, dtype=torch.int64, device=device) if keys else None
 
 
-def _select_cuda(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
+def _select_cuda(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool,
+                 cluster: int = -1):
+    """The selection kernel over [Q, N] candidates. cluster: -1 lets
+    csrc/select.cu pick its path from (Q, N); 0 asks for one block per
+    query, 8 for a thread-block cluster of 8 CTAs per query (another size,
+    or a cluster the card cannot schedule, raises)."""
     q, n = vals.shape
     if vals.dtype not in _SELECT_KINDS or gidx.dtype != torch.int32:
         raise ValueError(f"select_topk takes float32, bfloat16 or int32 values and "
@@ -534,14 +614,132 @@ def _select_cuda(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
     out_v, out_i = _pair_out(q, k, vals.dtype, vals.device)
     if q == 0 or k == 0:
         return out_v, out_i
-    rc = _kernels().ucfp_select_topk(
+    rc = _kernels().ucfp_select_topk_path(
         vals.data_ptr(), gidx.data_ptr(), _SELECT_KINDS[vals.dtype], q, n, k,
         int(largest), out_v.data_ptr(), out_i.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), _stream_ptr(vals),
+        None if scratch is None else scratch.data_ptr(), int(cluster), _stream_ptr(vals),
     )
     _check(rc, "select_topk")
     _count("select_topk")
     return out_v, out_i
+
+
+def select_cluster_info() -> dict:
+    """The selection kernel's path rule (csrc/select.cu) and what the
+    runtime reports for the current card: a cluster of `cluster` CTAs per
+    query where q * cluster <= sms and N >= min_n, else one block per
+    query; `resident` clusters fit the card at once at the largest
+    shared-memory size."""
+    info = (ctypes.c_int * 4)()
+    _check(_kernels().ucfp_select_cluster_info(info), "select_cluster_info")
+    return dict(zip(("cluster", "min_n", "sms", "resident"), info))
+
+
+def _order_words(vals: torch.Tensor, largest: bool) -> torch.Tensor:
+    """csrc/select.cu's order words as int64 in [0, 2^32): the value order
+    kept (largest first, or complemented for smallest first), -0.0 made
+    +0.0."""
+    if vals.dtype == torch.int32:
+        u = vals.to(torch.int64) + (1 << 31)
+    else:
+        b = vals.float().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        b = torch.where(b == 0x80000000, 0, b)
+        u = torch.where(b >= 0x80000000, 0xFFFFFFFF - b, b | 0x80000000)
+    return u if largest else 0xFFFFFFFF - u
+
+
+def _select_cluster_plain(vals: torch.Tensor, gidx: torch.Tensor, k: int,
+                          largest: bool, ranks: int):
+    """The cluster path of csrc/select.cu in plain PyTorch, for the tests
+    (the card never runs it): rank r of `ranks` owns positions [r * span,
+    (r + 1) * span), span = ceil(N / ranks); each radix pass sums the
+    ranks' own 256-bin histograms and picks the bin of the k-th key (early
+    stop when it is taken whole); each rank counts its keys above the
+    threshold (its bins above every pass's pick) and equal to it (its count
+    in the last pick); an exclusive prefix of those counts over the lower
+    ranks gives every winner its slot in position order; the slots' keys,
+    (order word, N - 1 - position), in descending order as _cluster_sorted
+    places them, give the answer."""
+    q, n = vals.shape
+    if k > n:
+        raise ValueError(f"k={k} exceeds the {n} candidates")
+    span = -(-n // ranks)
+    bounds = [(min(n, r * span), min(n, (r + 1) * span)) for r in range(ranks)]
+    words = _order_words(vals, largest)
+    pos = torch.arange(n, dtype=torch.int64, device=vals.device)
+    out_v, out_i = [], []
+    for row in range(q):
+        w = words[row]
+        prefix, mask, need = 0, 0, k
+        above = [0] * ranks  # each rank's keys above the threshold
+        equal = [0] * ranks  # ... and equal to it (the last pass's pick)
+        for shift in (24, 16, 8, 0):
+            digit = (w >> shift) & 0xFF
+            hists = [torch.bincount(digit[lo:hi][(w[lo:hi] & mask) == prefix], minlength=256)
+                     for lo, hi in bounds]
+            hist = torch.stack(hists).sum(0)
+            incl = torch.cumsum(hist.flip(0), 0)  # keys in this bin and the bins above
+            top = int(torch.nonzero(incl >= need)[0])  # bins from the top
+            d = 255 - top
+            before = int(incl[top] - hist[d])
+            for r, h in enumerate(hists):
+                above[r] += int(h[d + 1:].sum())
+                equal[r] = int(h[d])
+            prefix |= d << shift
+            mask |= 0xFF << shift
+            need -= before
+            if need == int(hist[d]):
+                break
+        m = w & mask
+        slot = torch.full((n,), -1, dtype=torch.int64, device=vals.device)
+        gt_before = eq_before = 0  # the exclusive prefix over the ranks
+        for r, (lo, hi) in enumerate(bounds):
+            gt, eq = m[lo:hi] > prefix, m[lo:hi] == prefix
+            gb = gt_before + torch.cumsum(gt, 0) - gt.long()  # above, at lower positions
+            eb = eq_before + torch.cumsum(eq, 0) - eq.long()
+            s = torch.where(gt, gb + torch.clamp(eb, max=need),
+                            torch.where(eq & (eb < need), gb + eb, -1))
+            slot[lo:hi] = s
+            gt_before += above[r]
+            eq_before += equal[r]
+        won = slot >= 0
+        keys = torch.zeros(k, dtype=torch.int64, device=vals.device)
+        keys[slot[won]] = ((w[won] - (1 << 31)) << 32) | (n - 1 - pos[won])
+        order = n - 1 - (_cluster_sorted(keys, ranks) & 0xFFFFFFFF)
+        out_v.append(vals[row, order])
+        out_i.append(gidx[row, order])
+    return torch.stack(out_v), torch.stack(out_i)
+
+
+_SORT_CAP = 16384  # csrc/select.cu's shared-memory sort, in keys
+_SPLIT_MIN_K = 513  # csrc/select.cu: from this k the cluster shares the sort
+
+
+def _cluster_sorted(keys: torch.Tensor, ranks: int) -> torch.Tensor:
+    """The k winners' keys (signed int64, unique) in descending order, as
+    the cluster path orders them: below SPLIT_MIN_K, or above the
+    shared-memory sort, one sort; else p slots (the sort's power of two)
+    cut into `ranks` slices of p / ranks, each padded with keys below
+    every real one and sorted, and each key placed at its index in its
+    slice plus the keys above it in every other slice."""
+    k = keys.shape[0]
+    if k < _SPLIT_MIN_K or k > _SORT_CAP:
+        return torch.sort(keys, descending=True).values
+    p = 1 << (k - 1).bit_length()
+    c = p // ranks
+    padded = torch.full((p,), -(1 << 63), dtype=torch.int64, device=keys.device)
+    padded[:k] = keys
+    slices = torch.sort(padded.view(ranks, c), dim=1, descending=True).values
+    ascending = slices.flip(1).contiguous()
+    out = torch.empty(k, dtype=torch.int64, device=keys.device)
+    for r in range(ranks):
+        real = slices[r, :max(0, min(c, k - r * c))]
+        place = torch.arange(real.shape[0], device=keys.device)
+        for other in range(ranks):
+            if other != r:  # keys above: c minus those at or below
+                place += c - torch.searchsorted(ascending[other], real, right=True)
+        out[place] = real
+    return out
 
 
 def _select(vals: torch.Tensor, gidx: torch.Tensor, k: int, largest: bool):
@@ -653,11 +851,9 @@ def hamming_topk_fused(query: torch.Tensor, db: torch.Tensor, k: int):
     -> ([k] int32 distances, [k] int32 catalog indices), smallest first.
     No validity mask: every row is a candidate (callers keep db dense)."""
     _check_hamming1(query, db)
-    if db.device.type == "cpu":
-        dist, gidx = _hamming1_cells_plain(query, db)
-    else:
-        dist, gidx = _hamming1_cells_cuda(query, db)
-    d, i = _select(dist, gidx, k, largest=False)
+    if db.device.type != "cpu":
+        return _hamming_topk_cuda(query, db, k)
+    d, i = _select_plain(*_hamming1_cells_plain(query, db), k, largest=False)
     return d[0], i[0]
 
 
@@ -792,11 +988,9 @@ def _cosine_i8_fused(q8, db8, row_norm, k: int, plain: bool):
     c = db8.shape[0]
     if c % (ROWS_PER_TILE_C * LANES):
         raise ValueError(f"{name} requires C % {ROWS_PER_TILE_C * LANES} == 0, got {c}")
-    if plain:
-        vals, gidx = _cosine_i8_cells_plain(q8, db8, row_norm)
-    else:
-        vals, gidx = _cosine_i8_cells_cuda(q8, db8, row_norm)
-    v, i = (_select_plain if plain else _select)(vals, gidx, k, largest=True)
+    if not plain:
+        return _cosine_i8_topk_cuda(q8, db8, row_norm, k)
+    v, i = _select_plain(*_cosine_i8_cells_plain(q8, db8, row_norm), k, largest=True)
     return v[0], i[0]
 
 
