@@ -37,11 +37,16 @@ each:
                   (above its shared-memory sort's 16,384 too), f32 / bf16
                   / int32, ties (across a cluster rank's boundary too),
                   +-0.0 and +-inf, and its path sweep (the cluster
-                  threshold); every fused function's selection
-                  share beside torch.topk over the same candidates; #3 at
+                  threshold); #2 (the batched Hamming scan) bit-equal,
+                  cells and top-k, on both its kernels (streaming, and the
+                  int8 tensor cores) at Q = 1 to 64 on 2^23 x 2 words, at W
+                  = 1, 3 and 16 with an all-invalid tile and on a tie-heavy
+                  catalog, and its path sweep (the Q threshold); every
+                  fused function's selection share beside torch.topk over
+                  the same candidates; #3 at
                   the int4 pool (k = 2048) at 2^22, 2^23 and 9,994,240
                   rows and #1 at the int4 batch pool (bf16, k = 640); for
-                  #1, #3, #6, #7 and the selection also the card's own
+                  #1, #2, #3, #6, #7 and the selection also the card's own
                   time (torch.profiler)
   4. conformance  the image hashes computed on the card against
                   tests/goldens/conformance.json
@@ -108,9 +113,10 @@ requests and a read just after (in phase 12, around the bench's run).
 Then one JSON line with every kernel's numbers (launches summed over
 phases 5-12), and last the line {"ok": true, "device": {...}}.
 --phases picks a subset (default: all twelve). One more phase, ab, is
-in no default run: the times of #13, #4 / #5, #6, #7 and the one-query
-selection alone, with no check, for an A/B against a parent's checkout
-(phase_ab).
+in no default run: the times of #13, #4 / #5, #6, #2, #7 and the
+one-query selection alone, with no check, for an A/B against a parent's
+checkout (phase_ab); and mma_rates, the throughput of three mma.sync
+shapes (phase_mma_rates).
 """
 
 import argparse
@@ -434,48 +440,7 @@ def phase_kernels(torch, dev, card: dict) -> dict:
                 "bound_ms": b, "bound_by": by,
             })
 
-    # kernel #2: fused XOR-popcount + per-cell argmin
-    for q, c, w, ties in ((1, 1 << 23, 2, False), (32, 1 << 23, 2, False),
-                          (1, 1 << 20, 16, False), (32, 1 << 20, 16, False),
-                          (32, 1 << 20, 2, True)):
-        if ties:
-            base = torch.randint(-2**31, 2**31, (4, w), generator=g, device=dev,
-                                 dtype=torch.int32)
-            db = base[torch.randint(0, 4, (c,), generator=g, device=dev)]
-        else:
-            db = torch.randint(-2**31, 2**31, (c, w), generator=g, device=dev,
-                               dtype=torch.int32)
-            db[100:300] = db[7]
-            db[c - 500:c - 300] = db[7]
-        db = db.contiguous()
-        valid = torch.rand(c, generator=g, device=dev) < 0.9
-        qs = db[torch.randint(0, c, (q,), generator=g, device=dev)].clone()
-        qs[0, 0] ^= 1
-        cells_k = fs._hamming_cells_cuda(qs, db, valid)
-        torch.cuda.synchronize()
-        cells_p = fs._hamming_cells_plain(qs, db, valid)
-        check(torch.equal(cells_k[0], cells_p[0]) and torch.equal(cells_k[1], cells_p[1]),
-              f"hamming cells equal q={q} w={w} ties={ties}")
-        dk, ik = fs.hamming_topk_fused_batched(qs, db, valid, k)
-        torch.cuda.synchronize()
-        dp, ip = fs.hamming_topk_fused_batched_plain(qs, db, valid, k)
-        check(torch.equal(dk, dp) and torch.equal(ik, ip),
-              f"hamming top-k equal q={q} w={w} ties={ties}")
-        nbytes = c * (4 * w + 1) + q * w * 4 + q * k * 8
-        # per (query, row): w XORs, w - 1 adds and one compare on the ALU
-        # pipe, w popcounts on the popcount pipe
-        b, by = bound_ms(card, nbytes, alu_ops=q * c * 2 * w, popc_ops=q * c * w)
-        results["hamming"].append({
-            "q": q, "c": c, "w": w, "ties": ties,
-            "max_abs_err": _max_abs(torch, dk, dp),
-            "ms": time_ms(torch, lambda: fs.hamming_topk_fused_batched(qs, db, valid, k)),
-            "cells_ms": time_ms(torch, lambda: fs._hamming_cells_cuda(qs, db, valid)),
-            **_select_split(torch, *cells_k, k, False),
-            "plain_ms": time_ms(torch, lambda: fs.hamming_topk_fused_batched_plain(
-                qs, db, valid, k)),
-            "library_ms": None, "bound_ms": b, "bound_by": by,
-            "kernel_bytes": -(-q // fs.QSEL) * c * (4 * w + 1),
-        })
+    _kernels_hamming(torch, dev, card, g, k, results)
     results.update(scores1=[], dots_norm=[], dots_norm_batched=[], int8_dots=[],
                    int_mm_rules=[_int_mm_rules(torch, dev)])
     for c in INT8_KERNEL_ROWS:
@@ -510,6 +475,126 @@ def phase_kernels(torch, dev, card: dict) -> dict:
     for name, rows in results.items():
         say(f"kernels/{name}: " + json.dumps(rows))
     return results
+
+
+def _hamming_bound(card: dict, q: int, c: int, w: int, k: int) -> dict:
+    """#2's bound, the least over its two formulations of the same work: W
+    popcounts per (query, row) (16 per clock per SM), or the exact int8
+    product of +1 / -1 query bits and 0 / 1 row bits (2 * 16 * ceil(Q / 16)
+    * C * 32W operations on the tensor cores) and one max per (query, row);
+    both read each row's 4W + 1 bytes once, the queries, and write the k
+    best. The popcount form stays beside it as bound_popc_ms."""
+    nbytes = c * (4 * w + 1) + q * w * 4 + q * k * 8
+    # per (query, row): w XORs, w - 1 adds and one compare on the ALU pipe,
+    # w popcounts on the popcount pipe
+    popc = bound_ms(card, nbytes, alu_ops=q * c * 2 * w, popc_ops=q * c * w)
+    mma = bound_ms(card, nbytes, alu_ops=q * c,
+                   int8_mma_ops=2 * 16 * -(-q // 16) * c * 32 * w)
+    b, by = min(popc, mma)
+    return {"bound_ms": b, "bound_by": by, "bound_popc_ms": popc[0], "bound_mma_ms": mma[0]}
+
+
+# #2's phase-3 cases: (Q values, rows, words, tie-heavy, an all-invalid tile);
+# the served pHash shape at every Q a batch takes to either path, then the
+# other widths at 2^20 rows
+HAMMING_CASES = (((1, 2, 4, 5, 8, 9, 16, 17, 32, 33, 64), 1 << 23, 2, False, False),
+                 ((5, 33), 1 << 20, 1, False, True), ((5, 33), 1 << 20, 3, False, True),
+                 ((5, 33), 1 << 20, 16, False, True), ((1, 32), 1 << 20, 16, False, False),
+                 ((32,), 1 << 20, 2, True, False))
+HAMMING_SWEEP_QS = (1, 2, 3, 4, 6, 8)  # both paths, 2^23 x 2 words
+
+
+def _kernels_hamming(torch, dev, card: dict, g, k: int, results: dict) -> None:
+    """Kernel #2 against its plain version: cells and top-k bit-equal on
+    each path that takes the batch (the streaming kernel up to its
+    stream_max_q, the tensor cores at any Q) and through the wrapper's own
+    pick, on random catalogs with one row copied into its own tile and the
+    last one, an all-invalid tile, or four distinct rows (ties everywhere);
+    the function, its cells and its selection timed by CUDA events and on
+    the card. Then the path sweep: both cells kernels' card time at Q = 1 to
+    8 on the served pHash shape, beside the threshold the wrapper uses."""
+    from ucfp_tpu_torch.ops import fused_scan as fs
+
+    results["hamming"], sweep = [], []
+    for qs_list, c, w, ties, dead_tile in HAMMING_CASES:
+        info = fs.hamming_paths_info(w)
+        if ties:
+            base = torch.randint(-2**31, 2**31, (4, w), generator=g, device=dev,
+                                 dtype=torch.int32)
+            db = base[torch.randint(0, 4, (c,), generator=g, device=dev)]
+        else:
+            db = torch.randint(-2**31, 2**31, (c, w), generator=g, device=dev,
+                               dtype=torch.int32)
+            db[100:300] = db[7]
+            db[c - 500:c - 300] = db[7]
+        db = db.contiguous()
+        valid = torch.rand(c, generator=g, device=dev) < 0.9
+        if dead_tile:
+            tile = fs.HAMMING_ROWS_PER_TILE * fs.LANES
+            valid[tile:2 * tile] = False  # every cell of tile 1 holds no valid row
+        for q in qs_list:
+            qs = db[torch.randint(0, c, (q,), generator=g, device=dev)].clone()
+            qs[0, 0] ^= 1
+            what = f"q={q} c={c} w={w} ties={ties} dead_tile={dead_tile}"
+            cells_p = fs._hamming_cells_plain(qs, db, valid)
+            dp, ip = fs.hamming_topk_fused_batched_plain(qs, db, valid, k)
+            paths = (0, 1) if q <= info["stream_max_q"] else (1,)
+            for path in paths:
+                cells_k = fs._hamming_cells_cuda(qs, db, valid, path)
+                torch.cuda.synchronize()
+                check(torch.equal(cells_k[0], cells_p[0]) and torch.equal(cells_k[1], cells_p[1]),
+                      f"hamming cells equal path={path} {what}")
+                dk, ik = fs._hamming_batched_topk_cuda(qs, db, valid, k, path)
+                torch.cuda.synchronize()
+                check(torch.equal(dk, dp) and torch.equal(ik, ip),
+                      f"hamming top-k equal path={path} {what}")
+            if dead_tile:
+                cell = slice(fs.LANES, 2 * fs.LANES)  # tile 1's cells: (2^30, row 0)
+                check(bool((cells_k[0][:, cell] == 2**30).all())
+                      and torch.equal(cells_k[1][:, cell].long() % (fs.LANES * fs.LANES),
+                                      torch.arange(fs.LANES, device=dev).expand(q, -1)),
+                      f"hamming all-invalid tile {what}")
+            dk, ik = fs.hamming_topk_fused_batched(qs, db, valid, k)
+            torch.cuda.synchronize()
+            check(torch.equal(dk, dp) and torch.equal(ik, ip), f"hamming top-k equal {what}")
+            path = 1 if q >= info["mma_min_q"] else 0
+
+            def whole():
+                return fs.hamming_topk_fused_batched(qs, db, valid, k)
+
+            def cells():
+                return fs._hamming_cells_cuda(qs, db, valid)
+
+            cells_k = cells()
+            results["hamming"].append({
+                "q": q, "c": c, "w": w, "ties": ties, "dead_tile": dead_tile,
+                "path": ("stream", "mma")[path], "max_abs_err": _max_abs(torch, dk, dp),
+                "ms": time_ms(torch, whole), "device_ms": device_ms(torch, whole),
+                "cells_ms": time_ms(torch, cells), "cells_device_ms": device_ms(torch, cells),
+                **_select_split(torch, *cells_k, k, False),
+                "plain_ms": time_ms(torch, lambda: fs.hamming_topk_fused_batched_plain(
+                    qs, db, valid, k)),
+                "library_ms": None, **_hamming_bound(card, q, c, w, k),
+                # the catalog's bytes the cells kernel reads: once for the
+                # streaming kernel, once per block of queries on the tensor cores
+                "kernel_bytes": (1 if path == 0 else -(-q // info["mma_block_q"]))
+                * c * (4 * w + 1),
+            })
+            if c == 1 << 23 and w == 2 and not ties and q == 1:
+                for sq in HAMMING_SWEEP_QS:
+                    qq = db[torch.randint(0, c, (sq,), generator=g, device=dev)].clone()
+                    row = {"q": sq}
+                    for path, name in ((0, "stream"), (1, "mma")):
+                        row[f"{name}_device_ms"] = device_ms(
+                            torch, lambda: fs._hamming_cells_cuda(qq, db, valid, path))
+                    sweep.append(row)
+        del db, valid
+        torch.cuda.empty_cache()
+    faster = [r["q"] for r in sweep
+              if None not in (r["mma_device_ms"], r["stream_device_ms"])
+              and r["mma_device_ms"] < r["stream_device_ms"]]
+    results["hamming_paths"] = [{**fs.hamming_paths_info(2), "c": 1 << 23, "w": 2,
+                                 "sweep": sweep, "mma_faster_from_q": min(faster, default=None)}]
 
 
 def int8_dots_plain(torch, qq, q8m, rows: int = 1 << 20):
@@ -2812,11 +2897,12 @@ def phase_bench(torch, dev) -> dict:
 def phase_ab(torch, dev) -> dict:
     """Times only, no checks: #13 at Q = 1, 2, 32 and 64 (bf16) and #4 / #5
     (the function and its cells, Q = 1 and 32) at 2^22 x 768 rows; #6 at
-    2^20 x 2 and 9,994,240 x 2 words, #7 at 9,994,240 x 64 (k = 10), and
-    the selection at one query over 39,040 and 78,080 candidates (k = 10
-    and 2048), these four also by the host's time per call (host_ms); on
-    random inputs from a seed, through wrappers that every
-    checkout since the selection kernel has (fs.hamming_topk_fused,
+    2^20 x 2 and 9,994,240 x 2 words, #2 at 2^23 x 2 words (Q = 1 and 32),
+    #7 at 9,994,240 x 64 (k = 10), and the selection at one query over
+    39,040 and 78,080 candidates (k = 10 and 2048), these five also by the
+    host's time per call (host_ms); on random inputs from a seed, through
+    wrappers that every checkout since the selection kernel has
+    (fs.hamming_topk_fused, fs.hamming_topk_fused_batched,
     fs.cosine_int8_topk_fused, fs._select_cuda(vals, gidx, k, largest)). A
     parent's checkout runs the same code when this file is copied into it:
     `python3 chip_smoke.py --phases device,build,ab` in each tree, in
@@ -2875,6 +2961,16 @@ def phase_ab(torch, dev) -> dict:
         q = db[7] ^ 1
         out[f"hamming_topk_fused_c{rows}_w2"] = timed(lambda: fs.hamming_topk_fused(q, db, 10))
         del db
+    # #2 at the served pHash shape, one query and a batch of 32 (a tenth of
+    # the rows invalid)
+    db = torch.randint(-2**31, 2**31, (PHASH_ROWS, 2), generator=g, device=dev,
+                       dtype=torch.int32)
+    valid = torch.rand(PHASH_ROWS, generator=g, device=dev) < 0.9
+    for q in (1, 32):
+        qs = db[:q] ^ 1
+        out[f"hamming_topk_fused_batched_c{PHASH_ROWS}_w2_q{q}"] = timed(
+            lambda: fs.hamming_topk_fused_batched(qs, db, valid, 10))
+    del db, valid
     # #7 at the bench's 10M x 64
     db8 = torch.randint(-128, 128, (BENCH_X64_ROWS, 64), generator=g, device=dev,
                         dtype=torch.int8)
@@ -2893,6 +2989,85 @@ def phase_ab(torch, dev) -> dict:
                 lambda: fs._select_cuda(vals, gidx, kk, True))
     say("ab: " + json.dumps(out))
     return out
+
+
+MMA_RATES_CU = r"""
+// the throughput of one mma.sync shape: 8 independent accumulators a warp
+#include <cstdio>
+#include <cuda_runtime.h>
+#include <stdint.h>
+template <int KIND>
+__global__ void rate(int* out, int iters) {
+  uint32_t a0 = threadIdx.x, a1 = a0 * 3, a2 = a0 * 5, a3 = a0 * 7, b0 = a0 * 11, b1 = a0 * 13;
+  int c[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#define UCFP_MMA(SHAPE)                                                                       \
+  asm volatile("mma.sync.aligned." SHAPE " {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};" \
+               : "+r"(c[j][0]), "+r"(c[j][1]), "+r"(c[j][2]), "+r"(c[j][3])                    \
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1))
+      if constexpr (KIND == 0) UCFP_MMA("m16n8k32.row.col.s32.s8.u8.s32");
+      else if constexpr (KIND == 1) UCFP_MMA("m16n8k64.row.col.s32.s4.u4.s32");
+      else UCFP_MMA("m16n8k256.row.col.s32.b1.b1.s32.and.popc");
+    }
+  }
+  int s = 0;
+  for (int j = 0; j < 8; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+template <int KIND>
+float run(int sms, int* out, int iters) {
+  rate<KIND><<<2 * sms, 256>>>(out, iters);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  cudaEventRecord(e0);
+  rate<KIND><<<2 * sms, 256>>>(out, iters);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float ms = 0.f;
+  cudaEventElapsedTime(&ms, e0, e1);
+  return cudaGetLastError() == cudaSuccess ? ms : -1.f;
+}
+int main() {
+  int sms = 0, *out = nullptr;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  cudaMalloc(&out, 2 * sms * 256 * sizeof(int));
+  const int iters = 2000;  // 2 blocks x 8 warps x iters x 8 products per SM
+  printf("%d %f %f %f\n", 2 * 8 * iters * 8, run<0>(sms, out, iters), run<1>(sms, out, iters),
+         run<2>(sms, out, iters));
+  return 0;
+}
+"""
+
+
+def phase_mma_rates(card: dict) -> dict:
+    """The throughput of three mma.sync shapes on this card, each warp
+    keeping 8 independent accumulators (2 blocks of 8 warps per SM): s8 x
+    u8 m16n8k32 (what #2's tensor-core kernel runs), s4 x u4 m16n8k64 and
+    b1 AND-popcount m16n8k256 (two ways to more bits a product), as ns and
+    SM clocks per product per SM. Built with nvcc into the ignored build
+    directory; in no default run."""
+    from ucfp_tpu_torch import _build
+
+    d = os.path.join(_build.BUILD_DIR, "mma_rates")
+    os.makedirs(d, exist_ok=True)
+    src, exe = os.path.join(d, "mma_rates.cu"), os.path.join(d, "mma_rates")
+    with open(src, "w") as f:
+        f.write(MMA_RATES_CU)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:4], "-o", exe, src], check=True,
+                   capture_output=True, timeout=300)
+    out = subprocess.run([exe], check=True, capture_output=True, text=True, timeout=120)
+    per_sm, *ms = out.stdout.split()
+    rates = {}
+    for name, t in zip(("s8_u8_m16n8k32", "s4_u4_m16n8k64", "b1_and_popc_m16n8k256"), ms):
+        ns = float(t) * 1e6 / int(per_sm)
+        check(ns > 0, f"mma rate {name} ran")
+        rates[name] = {"ns_per_mma_per_sm": ns,
+                       "clocks_per_mma_per_sm": ns * card["sm_clock_hz"] / 1e9}
+    say("mma_rates: " + json.dumps(rates))
+    return rates
 
 
 # -- main ---------------------------------------------------------------------
@@ -2918,7 +3093,7 @@ def _findings_line(kernels: dict, served: list) -> dict:
         ("scores_topk_fused_batched", scan, 487, "scores",
          pick(kernels["scores"], q=32, dtype="float32", ties=False), {"q": 32}),
         ("hamming_topk_fused_batched", scan, 163, "hamming",
-         pick(kernels["hamming"], q=32, w=2, ties=False), {"q": 32, "w": 2}),
+         pick(kernels["hamming"], q=32, c=PHASH_ROWS, w=2, ties=False), {"q": 32, "w": 2}),
         ("scores_topk_fused", scan, 314, "scores1",
          pick(kernels["scores1"], c=INT8_ROWS, k=2048), {"q": 1, "k": 2048}),
         ("dots_norm_topk_fused", scan, 261, "dots_norm",
@@ -2962,7 +3137,8 @@ def _findings_line(kernels: dict, served: list) -> dict:
          **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          # the fused scans' two halves: cells kernel and selection
          **{f: row[f] for f in ("cells_ms", "select_ms", "device_ms", "cells_device_ms",
-                                "select_device_ms", "blocks_per_sm") if f in row},
+                                "select_device_ms", "blocks_per_sm", "bound_popc_ms",
+                                "kernel_bytes", "path") if f in row},
          "shape": {**shape, **({"c": row["c"]} if "c" in row else {"n": row["n"]})}}
         for name, path, line, key, row, shape in rows
     ]}
@@ -2994,6 +3170,8 @@ def main() -> int:
     kernels = phase_kernels(torch, dev, card) if "kernels" in phases else None
     if "ab" in phases:
         phase_ab(torch, dev)
+    if "mma_rates" in phases:
+        phase_mma_rates(card)
     if "conformance" in phases:
         phase_conformance(dev)
     served = []

@@ -77,6 +77,7 @@
 #include <type_traits>
 
 #include "cp_async.cuh"
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -164,15 +165,6 @@ __device__ __forceinline__ void store_rows(void* __restrict__ out, long long off
     }
     store4f<KIND>(out, off, s);
   }
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                       uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // the 16-byte chunk of column row pr (within a stage) that holds chunk ch:

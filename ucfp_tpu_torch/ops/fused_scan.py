@@ -12,9 +12,12 @@ Kernels (CUDA C++ for sm_90a, csrc/fused_scan.cu):
     scores, tiles of ROWS_PER_TILE=256 rows x 128 lanes;
     scores_topk_fused is its single-query [C] form (the same kernel at
     Q = 1, counted under its own name);
-  * hamming_topk_fused_batched — fused XOR-popcount + per-cell argmin,
-    tiles of ROWS_PER_TILE//2=128 rows x 128 lanes, QSEL queries per
-    block so each catalog row is read once per query block;
+  * hamming_topk_fused_batched — the per-cell argmin of Hamming
+    distances, tiles of ROWS_PER_TILE//2=128 rows x 128 lanes: below
+    the path threshold (hamming_paths_info) a streaming XOR-popcount
+    kernel, from it the distances as an exact int8 product on the
+    tensor cores with the catalog read once per block of up to 64
+    queries (_hamming_cells_mma_plain mirrors that formulation);
   * dots_norm_topk_fused_batched — int32 dots -> cosine (/|row| * 1/|q|)
     -> prefix validity -> per-cell argbest, tiles of 256 rows x 128
     lanes, QSEL queries per block so the row norms are read once per
@@ -40,8 +43,8 @@ position exactly as lax.top_k does: on the card a kernel of its own
 (select_topk, csrc/select.cu: radix select of a unique composite key,
 then a sort of the k winners; one block per query, or for a few queries
 over many candidates a thread-block cluster per query, whose partition
-_select_cluster_plain mirrors; #1, #3, #6 and #7 launch it with their
-cells kernel from one host call), on the CPU the stable sort itself. Every
+_select_cluster_plain mirrors; #1, #2, #3, #6 and #7 launch it with
+their cells kernel from one host call), on the CPU the stable sort itself. Every
 `*_plain` wrapper selects with the stable sort on any device, so the
 card's selection is held against it too. Beside each kernel sits its
 plain PyTorch version (`*_plain`): the CPU path, and the yardstick the
@@ -64,7 +67,7 @@ ROWS_PER_TILE_C = 128  # int8-cosine tile: ROWS_PER_TILE_C * 128 catalog rows
 DN_SLICES = 8  # interleaved row slices of the dots-norm cells kernel (csrc/fused_scan.cu)
 SUB = 8  # segments per int8-cosine line tile (cosine_int8_topk_mxu)
 HAMMING_ROWS_PER_TILE = ROWS_PER_TILE // 2  # Hamming tile: 128 * 128 rows
-QSEL = 8  # queries per Hamming block: one catalog read serves 8 queries
+QSEL = 8  # the reference's query block (pallas_scan.QSEL): the plain Hamming cells' chunk
 # widest fingerprint (u32 words) the fused Hamming kernel takes; wider
 # fingerprints ride the exact ops.knn.hamming_topk path
 MAX_FUSED_HAMMING_WORDS = 16
@@ -111,7 +114,11 @@ def _kernels():
         lib.ucfp_scores_cells.restype = i
         lib.ucfp_scores_cells.argtypes = [p, i, i, i, ll, p, p, p]
         lib.ucfp_hamming_cells.restype = i
-        lib.ucfp_hamming_cells.argtypes = [p, i, i, p, p, ll, p, p, p]
+        lib.ucfp_hamming_cells.argtypes = [p, i, i, p, p, ll, p, p, i, p]
+        lib.ucfp_hamming_batched_topk.restype = i
+        lib.ucfp_hamming_batched_topk.argtypes = [p, i, i, p, p, ll, i, i, p, p, p, p, p, p]
+        lib.ucfp_hamming_paths_info.restype = i
+        lib.ucfp_hamming_paths_info.argtypes = [i, ctypes.POINTER(i)]
         lib.ucfp_dots_norm_cells.restype = i
         lib.ucfp_dots_norm_cells.argtypes = [p, i, ll, p, ll, p, p, p, p]
         lib.ucfp_dots_norm_blocks_per_sm.restype = i
@@ -239,15 +246,17 @@ def _scores_topk_cuda(scores: torch.Tensor, k: int, largest: bool, name: str):
     return out_v, out_i
 
 
-def _one_call_out(n: int, k: int, device):
-    """One int32 allocation for a one-query fused function's n cells and
-    its k outputs: (cells' value and index pointers, outputs' value and
-    index tensors). The outputs' values are int32 views, to be viewed as
-    the function's value type."""
-    cells, out_v, out_i = torch.empty(2 * (n + k), dtype=torch.int32,
-                                      device=device).split((2 * n, k, k))
+def _one_call_out(n: int, k: int, device, q: int = 1):
+    """One int32 allocation for a fused function's n cells and k outputs
+    per query: (cells' value and index pointers, outputs' value and index
+    tensors, [k] for one query and [q, k] for a batch). The outputs'
+    values are int32 views, to be viewed as the function's value type."""
+    cells, out_v, out_i = torch.empty(2 * q * (n + k), dtype=torch.int32,
+                                      device=device).split((2 * q * n, q * k, q * k))
     ptr = cells.data_ptr()
-    return (ptr, ptr + 4 * n), out_v, out_i
+    if q > 1:
+        out_v, out_i = out_v.view(q, k), out_i.view(q, k)
+    return (ptr, ptr + 4 * q * n), out_v, out_i
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -288,10 +297,47 @@ def _hamming_cells_plain(queries: torch.Tensor, db: torch.Tensor,
     return torch.cat(vals), torch.cat(idxs)
 
 
-def _hamming_cells_cuda(queries: torch.Tensor, db: torch.Tensor,
-                        valid: torch.Tensor):
+def _hamming_cells_mma_plain(queries: torch.Tensor, db: torch.Tensor,
+                             valid: torch.Tensor):
+    """The tensor-core cells kernel's formulation in plain PyTorch, for the
+    tests (the card never runs it): query bits as +1 / -1 and row bits as
+    0 / 1, one exact integer product per (query, row), so dot = popc(q &
+    b) - popc(~q & b); the kernel's row bytes are 128 * bit, so its sums
+    are 128 * dot plus the accumulator input 127 - r, less 2^22 for an
+    invalid row; each cell keeps its largest sum (the largest dot, then the
+    lowest r), and its distance is popc(q) - dot, or (2^30, r = 0) when its
+    best dot lies below -2^14 (no valid row)."""
     q, w = queries.shape
     c = db.shape[0]
+    tiles = c // (HAMMING_ROWS_PER_TILE * LANES)
+    dev = db.device
+    shifts = torch.arange(32, device=dev)
+    qbits = (queries[:, :, None] >> shifts) & 1  # [Q, W, 32], int32
+    rbits = (db[:, :, None] >> shifts) & 1  # [C, W, 32]
+    a = (2 * qbits - 1).reshape(q, 32 * w)
+    # 128 * dot; a float64 product of these small integers (|sum| <= 2^16)
+    # is exact, and BLAS runs it where an integer product has no fast path
+    dot = (a.double() @ (128 * rbits).reshape(c, 32 * w).T.double()).to(torch.int64)
+    r = torch.arange(HAMMING_ROWS_PER_TILE, device=dev).view(1, 1, -1, 1)
+    acc = dot.view(q, tiles, HAMMING_ROWS_PER_TILE, LANES) + (HAMMING_ROWS_PER_TILE - 1 - r)
+    acc = torch.where(valid.view(1, tiles, HAMMING_ROWS_PER_TILE, LANES), acc,
+                      acc - (1 << 22))
+    best = acc.amax(dim=2)  # [Q, T, 128]
+    best_dot = best >> 7
+    invalid = best_dot < -(1 << 14)
+    pq = _popcount32(queries).sum(dim=1).view(q, 1, 1)
+    dist = torch.where(invalid, _INVALID_DIST, pq - best_dot)
+    first = torch.where(invalid, 0, HAMMING_ROWS_PER_TILE - 1 - (best & 127))
+    t_ix = torch.arange(tiles, device=dev).view(1, -1, 1)
+    lanes = torch.arange(LANES, device=dev).view(1, 1, -1)
+    gidx = (t_ix * HAMMING_ROWS_PER_TILE + first) * LANES + lanes
+    return dist.to(torch.int32).reshape(q, -1), gidx.to(torch.int32).reshape(q, -1)
+
+
+def _check_hamming_card(queries: torch.Tensor, db: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """The card's #2 kernels' layout checks; returns valid 16-byte aligned
+    (the tensor-core kernel copies it in 16-byte pieces)."""
     for name, t in (("queries", queries), ("db", db), ("valid", valid)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -299,16 +345,61 @@ def _hamming_cells_cuda(queries: torch.Tensor, db: torch.Tensor,
             raise ValueError(f"{name} must be on {db.device}")
     if db.data_ptr() % 16:
         raise ValueError("db must be 16-byte aligned (vector row loads)")
+    return _aligned16(valid)
+
+
+def _hamming_cells_cuda(queries: torch.Tensor, db: torch.Tensor,
+                        valid: torch.Tensor, path: int = -1):
+    """#2's cells kernel alone. path: -1 picks by Q (hamming_paths_info), 0
+    the streaming kernel (Q <= its stream_max_q), 1 the tensor cores."""
+    q, w = queries.shape
+    c = db.shape[0]
+    valid = _check_hamming_card(queries, db, valid)
     tiles = c // (HAMMING_ROWS_PER_TILE * LANES)
-    dist = torch.empty((q, tiles * LANES), dtype=torch.int32, device=db.device)
-    gidx = torch.empty((q, tiles * LANES), dtype=torch.int32, device=db.device)
+    dist, gidx = _pair_out(q, tiles * LANES, torch.int32, db.device)
     rc = _kernels().ucfp_hamming_cells(
         queries.data_ptr(), q, w, db.data_ptr(), valid.data_ptr(), c,
-        dist.data_ptr(), gidx.data_ptr(), _stream_ptr(db),
+        dist.data_ptr(), gidx.data_ptr(), int(path), _stream_ptr(db),
     )
     _check(rc, "hamming_topk_fused_batched")
     _count("hamming_topk_fused_batched")
     return dist, gidx
+
+
+def _hamming_batched_topk_cuda(queries: torch.Tensor, db: torch.Tensor,
+                               valid: torch.Tensor, k: int, path: int = -1):
+    """#2 whole: the cells kernel of the path (as _hamming_cells_cuda's)
+    and the selection kernel over its cells from one host call
+    (ucfp_hamming_batched_topk) into one allocation -> ([Q, k] int32
+    distances, [Q, k] int32 indices)."""
+    q, w = queries.shape
+    c = db.shape[0]
+    dev = db.device
+    valid = _check_hamming_card(queries, db, valid)
+    n = c // HAMMING_ROWS_PER_TILE  # (tile, lane) cells per query
+    scratch = _select_scratch(q, n, k, dev)
+    if k == 0:
+        return (torch.empty((q, 0), dtype=torch.int32, device=dev),) * 2
+    cells, out_d, out_i = _one_call_out(n, k, dev, q)
+    rc = _kernels().ucfp_hamming_batched_topk(
+        queries.data_ptr(), q, w, db.data_ptr(), valid.data_ptr(), c, k, int(path), *cells,
+        out_d.data_ptr(), out_i.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        _stream_ptr(db),
+    )
+    _check(rc, "hamming_topk_fused_batched")
+    _count("hamming_topk_fused_batched", "select_topk")
+    return out_d.view(q, k), out_i.view(q, k)
+
+
+def hamming_paths_info(w: int = 2) -> dict:
+    """#2's path rule (csrc/fused_scan.cu) at w words a row: the
+    tensor-core kernel from `mma_min_q` queries, the streaming kernel
+    below it (it takes at most `stream_max_q`); a block of the tensor-core
+    kernel serves `mma_block_q` queries, so it reads the catalog once per
+    that many."""
+    info = (ctypes.c_int * 3)()
+    _check(_kernels().ucfp_hamming_paths_info(w, info), "hamming_paths_info")
+    return dict(zip(("mma_min_q", "stream_max_q", "mma_block_q"), info))
 
 
 def _hamming1_cells_plain(query: torch.Tensor, db: torch.Tensor):
@@ -815,11 +906,9 @@ def hamming_topk_fused_batched(queries: torch.Tensor, db: torch.Tensor,
     C % 32768 == 0, W <= 16 -> ([Q, k] int32 distances, [Q, k] int32
     catalog indices), smallest first; invalid rows score 2^30."""
     _check_hamming(queries, db, valid)
-    if db.device.type == "cpu":
-        dist, gidx = _hamming_cells_plain(queries, db, valid)
-    else:
-        dist, gidx = _hamming_cells_cuda(queries, db, valid)
-    return _select(dist, gidx, k, largest=False)
+    if db.device.type != "cpu":
+        return _hamming_batched_topk_cuda(queries, db, valid, k)
+    return _select_plain(*_hamming_cells_plain(queries, db, valid), k, largest=False)
 
 
 def hamming_topk_fused_batched_plain(queries: torch.Tensor, db: torch.Tensor,
