@@ -100,19 +100,42 @@ each:
                   vector, vectors x32, a filtered vector, the exact tier, an
                   upsert that a query finds, a delete
  12. bench        the port's bench entry point (ucfp_tpu_torch.bench) in
-                  this process: the phash headline and the 10M x 64 query
+                  this process: the phash headline, the 10M x 64 query
                   keys (exact and fused Hamming; exact, hybrid, mxu and
-                  fused int8 cosine), each a finite positive number, with
+                  fused int8 cosine) and the five audio keys (Wang,
+                  Panako, Haitsma and Haitsma-FFT extraction xRT, the
+                  landmark-vote p50), each a finite positive number, with
                   #4, #6, #7 and #8 launched and the last line parsed
+ 13. audio        the classical audio path: (a) the min-BER kernel
+                  (csrc/min_ber.cu) bit-equal to its plain version (BER
+                  bits and offsets) at the served shape (2^14 rows x
+                  Tb 4,096, a 359-word query), on a tie-heavy catalog,
+                  with rows shorter than the query and dead rows, at
+                  q_true = 1 and q_true = Tb, and on one row of 2^18
+                  words; (b) the integer spectrograms (n_fft 1024 / shift
+                  8, 2048 / shift 14, the integer FFT), the peak picker,
+                  Wang pairs, Panako triplets and Haitsma words on a 60 s
+                  clip on the card bit-equal to the CPU, and the 8
+                  non-neural audio digests computed on the card equal to
+                  tests/goldens/conformance.json; (c) an EmbeddedBackend
+                  on the card holding 2^14 - 128 random 30 s Haitsma
+                  streams and 10^4 Wang records of 100 landmarks, served
+                  over loopback HTTP: batch ingest of 64 x 30 s s16 clips
+                  and one single ingest per algorithm (wang, panako,
+                  haitsma; fingerprints equal to the CPU's), a watermark
+                  report, fingerprint_hex for each algorithm and
+                  fingerprints_hex x 8 for Haitsma (each excerpt finds its
+                  clip at rank 1), a Haitsma upsert a query then finds,
+                  a delete
 
-In phases 5-11 every served answer is checked against the plain path on
-the same device tensors (or, in phases 7 and 8, the micro-batched answer
-against the unbatched one), and the launch count of every kernel that
-the phase's path runs must rise between a reset just before the phase's
-requests and a read just after (in phase 12, around the bench's run).
-Then one JSON line with every kernel's numbers (launches summed over
-phases 5-12), and last the line {"ok": true, "device": {...}}.
---phases picks a subset (default: all twelve). One more phase, ab, is
+In phases 5-11 and 13 every served answer is checked against the plain
+path on the same device tensors (or, in phases 7 and 8, the micro-batched
+answer against the unbatched one), and the launch count of every kernel
+that the phase's path runs must rise between a reset just before the
+phase's requests and a read just after (in phase 12, around the bench's
+run). Then one JSON line with every kernel's numbers (launches summed over
+phases 5-13), and last the line {"ok": true, "device": {...}}.
+--phases picks a subset (default: all thirteen). One more phase, ab, is
 in no default run: the times of #13, #4 / #5, #6, #2, #7 and the
 one-query selection alone, with no check, for an A/B against a parent's
 checkout (phase_ab); and mma_rates, the throughput of three mma.sync
@@ -216,8 +239,9 @@ def say(line: str) -> None:
 
 def _kernel_modules():
     from ucfp_tpu_torch.ops import fused_scan, int2_scan, int4_scan, sketch_scan
+    from ucfp_tpu_torch.ops.audio import haitsma
 
-    return fused_scan, int4_scan, int2_scan, sketch_scan
+    return fused_scan, int4_scan, int2_scan, sketch_scan, haitsma
 
 
 def reset_counts() -> None:
@@ -2829,10 +2853,12 @@ def phase_sharded(torch, dev, n_served: int = SHARD_SERVED_ROWS) -> dict:
 
 
 # the bench keys phase 12 runs: the headline and the 10M x 64 query keys
-BENCH_ONLY = "phash,10m_x64"
+BENCH_ONLY = "phash,10m_x64,audio"
 BENCH_KEYS = ("query_hamming_p50_ms_10m_x64bit", "query_hamming_fused_p50_ms_10m_x64bit",
               "query_cosine_int8_p50_ms_10m_x64", "query_cosine_int8_hybrid_p50_ms_10m_x64",
-              "query_cosine_int8_mxu_p50_ms_10m_x64", "query_cosine_int8_fused_p50_ms_10m_x64")
+              "query_cosine_int8_mxu_p50_ms_10m_x64", "query_cosine_int8_fused_p50_ms_10m_x64",
+              "audio_wang_xrt", "audio_panako_xrt", "audio_haitsma_xrt",
+              "audio_haitsma_fft_xrt", "audio_match_p50_ms_1m_landmarks")
 # the kernels those keys run: #4 (hybrid), #6 (fused Hamming), #7, #8
 BENCH_KERNELS = ("dots_norm_topk_fused", "hamming_topk_fused", "cosine_int8_topk_fused",
                  "cosine_int8_topk_mxu", "select_topk")
@@ -2840,9 +2866,9 @@ BENCH_KERNELS = ("dots_norm_topk_fused", "hamming_topk_fused", "cosine_int8_topk
 
 def phase_bench(torch, dev) -> dict:
     """The port's bench entry point (ucfp_tpu_torch.bench.main), in this
-    process so the launch counts show what it ran: the phash headline and
-    the 10M x 64 keys (UCFP_BENCH_ONLY=phash,10m_x64 with
-    UCFP_BENCH_FULL=1 for the exact ones). Every key must be a finite
+    process so the launch counts show what it ran: the phash headline, the
+    10M x 64 keys and the five audio keys (UCFP_BENCH_ONLY=phash,10m_x64,
+    audio with UCFP_BENCH_FULL=1 for the exact ones). Every key must be a finite
     positive number, #4, #6, #7 and #8 must launch, and the last line must
     parse and hold at most 1.5 KB."""
     import math
@@ -2889,6 +2915,425 @@ def phase_bench(torch, dev) -> dict:
            "launches": launches, "phase_s": time.perf_counter() - t_phase}
     say("bench: " + json.dumps(out))
     return out
+
+
+# -- phase 13 -----------------------------------------------------------------
+
+# (a) min-BER: the served shape (2^14 rows of 30 s Haitsma streams, 2,311
+# words each in Tb = 4,096 columns, against a 359-word query in Qb = 512)
+# and the edge cases
+MINBER_ROWS = 1 << 14
+MINBER_TB = 4096
+MINBER_WORDS = 2311  # 30 s at 5 kHz: (150,000 - 2,048) // 64 words
+MINBER_Q = 359
+MINBER_QB = 512
+MINBER_PLAIN_RUNS = 3  # the plain version takes about a second a call there
+# (b) the ops on a 60 s clip; (c) the served catalogs: random 30 s Haitsma
+# streams (room left below 2^14 rows for the ingests) and 10^4 Wang records
+# of 100 landmarks (the reference bench's audio-match shape)
+AUDIO_SECS = 60.0
+HAITSMA_SERVED = (1 << 14) - 128
+WANG_SERVED = 10_000
+WANG_PER = 100
+AUDIO_BATCH = 64  # 30 s s16 clips at 8 kHz per batch request
+AUDIO_CLIP_S = 30.0
+AUDIO_QUERY_S = 5.0
+AUDIO_REPS = 10
+AUDIO_ALGOS = ("wang", "panako", "haitsma")
+
+
+def _fixed_audio(secs: float = 3.0, sr: int = 8000):
+    """The conformance corpus's audio generator (tests/test_conformance.py)."""
+    import math
+
+    import numpy as np
+
+    t = np.arange(int(secs * sr)) / sr
+    x = (0.4 * np.sin(2 * math.pi * 440 * t)
+         + 0.25 * np.sin(2 * math.pi * 1200 * t) * (np.sin(2 * math.pi * 0.7 * t) > 0)
+         + 0.1 * np.sin(2 * math.pi * 2500 * t) * (t > 1.0))
+    return x.astype(np.float32)
+
+
+def _audio_clip(i: int, secs: float = AUDIO_CLIP_S, sr: int = 8000):
+    """Clip i of the served catalog: two tones and a gate of its own, and
+    noise drawn from seed i, as s16 samples."""
+    import numpy as np
+
+    t = np.arange(int(secs * sr)) / sr
+    rng = np.random.default_rng(1000 + i)
+    x = (0.3 * np.sin(2 * np.pi * (300 + 37 * i) * t)
+         + 0.2 * np.sin(2 * np.pi * (900 + 53 * i) * t)
+         * (np.sin(2 * np.pi * (0.3 + 0.013 * i) * t) > 0)
+         + rng.normal(0, 0.05, t.size))
+    return np.clip(np.round(x * 20000), -32768, 32767).astype(np.int16)
+
+
+def _minber_case(torch, dev, g, r: int, tb: int, lens, q_true: int, qb: int,
+                 periodic: bool = False):
+    """(db, lens, q_pad) on the card: random u32 words (or period-4 rows
+    over 4 values, where many offsets tie), zero past each row's length,
+    and a query cut from a live row with about 1 word in 32 scrambled."""
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    if periodic:
+        vals = torch.tensor([0x0F0F0F0F, 0x33333333, 0x0F0F0F0F, 0x55555555],
+                            dtype=torch.int32, device=dev)
+        db = vals[torch.arange(tb, device=dev) % 4].expand(r, tb).clone()
+    else:
+        db = torch.randint(0, 2**32, (r, tb), generator=g, device=dev,
+                           dtype=torch.int64).to(torch.int32)
+    db.masked_fill_(torch.arange(tb, device=dev)[None, :] >= lens[:, None].long(), 0)
+    src = int(torch.argmax(lens).item())
+    q = db[src, 3:3 + q_true].clone() if q_true <= int(lens[src]) - 3 else db[src, :q_true].clone()
+    flips = torch.randint(0, 2**32, (q_true,), generator=g, device=dev, dtype=torch.int64)
+    sparse = torch.randint(0, 32, (q_true,), generator=g, device=dev) == 0
+    if not periodic:  # a periodic query matches exactly at every 4th offset
+        q ^= torch.where(sparse, flips, torch.zeros_like(flips)).to(torch.int32)
+    q_pad = torch.zeros(qb, dtype=torch.int32, device=dev)
+    q_pad[:q_true] = q
+    return db, lens, q_pad
+
+
+def _minber_bound(card: dict, lens, tb: int, q_true: int, qb: int) -> dict:
+    """min-BER's bound, the least over two formulations of the work this
+    run's lengths need, as #2's (_hamming_bound): q_true popcounts per
+    offset (16 per clock per SM), or an exact int8 product on the tensor
+    cores: the query's bits as +1 / -1 in 8 pieces (the N columns), each
+    window of row bits at every offset as the M rows (a Toeplitz operand),
+    2 * 32 * q_true operations per offset, then the 8 pieces' sums added
+    along the diagonals and one compare per offset on the ALU. Both read
+    the rows, lengths and query once and write (ber, offset). The
+    popcount form stays beside it as bound_popc_ms."""
+    import numpy as np
+
+    lens = np.asarray(lens, np.int64)
+    n_off = float(np.clip(np.minimum(lens - q_true, tb - qb) + 1, 0, None).sum())
+    nbytes = len(lens) * (tb * 4 + 4 + 8) + qb * 4
+    popc = bound_ms(card, nbytes, popc_ops=n_off * q_true)
+    mma = bound_ms(card, nbytes, alu_ops=n_off * 9, int8_mma_ops=2 * 32 * n_off * q_true)
+    b, by = min(popc, mma)
+    return {"bound_ms": b, "bound_by": by, "bound_popc_ms": popc[0], "bound_mma_ms": mma[0]}
+
+
+def _audio_kernel(torch, dev, card: dict) -> dict:
+    """13(a): ucfp_min_ber against min_ber_batch_plain on the card."""
+    from ucfp_tpu_torch.ops.audio import haitsma as hops
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    lens_served = torch.full((MINBER_ROWS,), MINBER_WORDS, dtype=torch.int32)
+    lens_served[::97] = torch.randint(0, MINBER_TB + 1, (len(lens_served[::97]),),
+                                      generator=torch.Generator().manual_seed(5),
+                                      dtype=torch.int32)
+    lens_served[5] = 0
+    short = torch.randint(0, 100, (512,), generator=torch.Generator().manual_seed(6),
+                          dtype=torch.int32)
+    short[::3] = 0
+    short[7] = 512
+    cases = (
+        ("served", MINBER_ROWS, MINBER_TB, lens_served, MINBER_Q, MINBER_QB, False),
+        ("ties", 1024, 1024, torch.full((1024,), 900, dtype=torch.int32), 40, 64, True),
+        ("short_and_dead", 512, 512, short, 64, 64, False),
+        ("q_true_1", 4096, 1024, torch.full((4096,), 1000, dtype=torch.int32), 1, 64, False),
+        ("q_true_tb", 256, 2048, torch.full((256,), 2048, dtype=torch.int32), 2048, 2048,
+         False),
+        ("one_long_row", 1, 1 << 18, [(1 << 18) - 5], MINBER_Q, MINBER_QB, False),
+    )
+    rows = []
+    for name, r, tb, lens, q_true, qb, periodic in cases:
+        db, lens_d, q_pad = _minber_case(torch, dev, g, r, tb, lens, q_true, qb, periodic)
+        bk, ok = hops._min_ber_cuda(db, lens_d, q_pad, q_true)
+        torch.cuda.synchronize()
+        bp, op = hops.min_ber_batch_plain(db, lens_d, q_pad, q_true)
+        check(_same_bits(torch, bk, bp) and torch.equal(ok, op),
+              f"min-BER {name}: ber bits and offsets equal the plain version")
+        row = {"case": name, "r": r, "tb": tb, "q_true": q_true, "qb": qb,
+               "max_abs_err": _max_abs(torch, bk, bp),
+               "no_offset_rows": int((ok < 0).sum()),
+               "ms": time_ms(torch, lambda: hops._min_ber_cuda(db, lens_d, q_pad, q_true))}
+        if name == "ties":
+            check(int((bk == 0).sum()) > 0, "ties: some rows match exactly")
+        if name in ("served", "one_long_row"):
+            row.update(plain_ms=time_ms(torch, lambda: hops.min_ber_batch_plain(
+                db, lens_d, q_pad, q_true), runs=MINBER_PLAIN_RUNS),
+                **_minber_bound(card, lens_d.cpu().numpy(), tb, q_true, qb),
+                library_ms=None)
+        rows.append(row)
+        del db, lens_d, q_pad
+    return {"min_ber": rows}
+
+
+def _audio_ops(torch, dev) -> dict:
+    """13(b): the ops on a 60 s clip on the card, bit-equal to the same
+    port functions on the CPU; the 8 non-neural audio digests on the card."""
+    import numpy as np
+    import xxhash
+
+    from ucfp_tpu_torch.modality import audio as amod
+    from ucfp_tpu_torch.ops.audio import constellation as con
+    from ucfp_tpu_torch.ops.audio import dsp as adsp
+    from ucfp_tpu_torch.ops.audio import haitsma as hops
+    from ucfp_tpu_torch.ops.audio import intfft
+
+    cpu = torch.device("cpu")
+    x8 = torch.from_numpy(adsp.quantize_samples_i16(_fixed_audio(AUDIO_SECS, 8000)))
+    x5 = torch.from_numpy(adsp.quantize_samples_i16(_fixed_audio(AUDIO_SECS, 5000)))
+    wang, pan = con.WangConfig(), con.PanakoConfig()
+    times = {}
+
+    def on_both(name, fn, *args):
+        t0 = time.perf_counter()
+        card = fn(*[a.to(dev) if hasattr(a, "to") else a for a in args])
+        card = card if isinstance(card, tuple) else (card,)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        host = fn(*[a.to(cpu) if hasattr(a, "to") else a for a in args])
+        host = host if isinstance(host, tuple) else (host,)
+        check(all(torch.equal(c.cpu(), h) for c, h in zip(card, host)),
+              f"{name} on the card == on the CPU")
+        return host
+
+    (p8,) = on_both("stft_power_int_1024_s8", adsp.stft_power_int, x8, 1024, 256, True, 8)
+    on_both("stft_power_int_2048_s14", adsp.stft_power_int, x5, 2048, 64, False, 14)
+    on_both("stft_power_int_fft", intfft.stft_power_int_fft, x5, 2048, 64, False)
+    peaks = on_both("pick_peaks", con.pick_peaks, p8.to(torch.float32), 8000 // 256,
+                    wang.peaks_per_sec, wang.min_anchor_mag_db, False)
+    check(bool(peaks[2].any()), "60 s clip: valid peaks")
+    on_both("wang_pairs", con.wang_pairs, *peaks, wang.fan_out, wang.target_zone_t,
+            wang.target_zone_f)
+    on_both("panako_triplets", con.panako_triplets, *peaks, pan.fan_out, pan.target_zone_t,
+            pan.target_zone_f)
+    for fft in (False, True):
+        on_both(f"haitsma_words_fft{int(fft)}", hops.haitsma_words, x5, 300.0, 2000.0, fft)
+
+    golden = json.loads(open(os.path.join(HERE, "tests", "goldens",
+                                          "conformance.json")).read())
+    x, short = _fixed_audio(), _fixed_audio(secs=1.0)
+    got = {
+        "audio/wang/8k": amod.fingerprint_wang(x, 8000, 0, 1, device=dev),
+        "audio/wang/16k-resampled": amod.fingerprint_wang(np.repeat(x, 2), 16000, 0, 1,
+                                                          device=dev),
+        "audio/panako/8k": amod.fingerprint_panako(x, 8000, 0, 1, device=dev),
+        "audio/haitsma/8k": amod.fingerprint_haitsma(x, 8000, 0, 1, device=dev),
+        "audio/wang/1s": amod.fingerprint_wang(short, 8000, 0, 1, device=dev),
+        "audio/haitsma/44k1-resampled": amod.fingerprint_haitsma(
+            _fixed_audio(secs=2.0, sr=44100), 44100, 0, 1, device=dev),
+        "audio/wang/tuned": amod.fingerprint_wang(
+            x, 8000, 0, 1, amod.WangConfig(fan_out=4, target_zone_t=32, target_zone_f=32,
+                                           peaks_per_sec=15, min_anchor_mag_db=-40.0),
+            device=dev),
+        "audio/haitsma/tuned": amod.fingerprint_haitsma(
+            x, 8000, 0, 1, amod.HaitsmaConfig(fmin=200.0, fmax=1800.0), device=dev),
+    }
+    bad = [k for k, r in got.items() if xxhash.xxh3_64_hexdigest(r.fingerprint) != golden[k]]
+    check(not bad, f"audio conformance digests on the card: {bad}")
+    check(set(got) == {k for k in golden if k.startswith("audio/") and "neural" not in k},
+          "every non-neural audio golden covered")
+    return {"ops_card_s": times, "digests": len(got)}
+
+
+def _audio_load(backend, seed: int) -> dict:
+    """The served catalogs, written through backend.upsert: HAITSMA_SERVED
+    random 30 s Haitsma streams and WANG_SERVED Wang records of WANG_PER
+    random landmarks."""
+    import numpy as np
+
+    from ucfp_tpu_torch.core import Modality, Record
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    for lo in range(0, HAITSMA_SERVED, 1024):
+        n = min(1024, HAITSMA_SERVED - lo)
+        words = rng.integers(0, 2**32, (n, MINBER_WORDS), dtype=np.uint64).astype("<u4")
+        asyncio.run(backend.upsert([
+            Record(0, 10**5 + lo + i, Modality.AUDIO, "audiofp-haitsma-v1",
+                   words[i].tobytes()) for i in range(n)]))
+    t1 = time.perf_counter()
+    for lo in range(0, WANG_SERVED, 1000):
+        recs = []
+        for rid in range(lo + 1, min(lo + 1000, WANG_SERVED) + 1):
+            h = rng.integers(0, 1 << 30, size=WANG_PER, dtype=np.uint32)
+            t = np.sort(rng.integers(0, 2000, size=WANG_PER)).astype(np.uint32)
+            recs.append(Record(0, rid, Modality.AUDIO, "audiofp-wang-v1",
+                               np.stack([h, t], axis=1).astype("<u4").tobytes()))
+        asyncio.run(backend.upsert(recs))
+    return {"haitsma_s": t1 - t0, "wang_s": time.perf_counter() - t1}
+
+
+def phase_audio(torch, dev, card: dict) -> dict:
+    """Phase 13: (a) the min-BER kernel against its plain version, (b) the
+    ops on the card against the CPU and the audio digests, (c) an
+    EmbeddedBackend on the card served over loopback HTTP: batch and single
+    ingest of every classical algorithm, the watermark report, queries by
+    fingerprint_hex (each excerpt finds its clip at rank 1) and
+    fingerprints_hex x 8 for Haitsma, a Haitsma upsert a query then finds,
+    and a delete. Every answer equals the plain path's, and min-BER and the
+    selection (the peak picker's) launch."""
+    import numpy as np
+
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.modality import audio as amod
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+
+    t_phase = time.perf_counter()
+    out = _audio_kernel(torch, dev, card)
+    out.update(_audio_ops(torch, dev))
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-audio-")
+    backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev)
+    server = None
+    # 64 x 30 s of s16 is 30.7 MB a request; the plain checks between two
+    # requests may outlast the default 30 s keep-alive
+    env = {"UCFP_BODY_LIMIT_MB": "64", "UCFP_READ_TIMEOUT_SECS": "900"}
+    saved = {name: os.environ.get(name) for name in env}
+    try:
+        load = _audio_load(backend, seed=13)
+        token = "smoke-token"
+        os.environ.update(env)
+        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        call = _Client(server.port, token)
+        clips = [_audio_clip(i) for i in range(AUDIO_BATCH + 2)]
+        base = {"wang": 1_000_000, "panako": 2_000_000, "haitsma": 3_000_000}
+        k = 5
+        fns = {"wang": amod.fingerprint_wang, "panako": amod.fingerprint_panako,
+               "haitsma": amod.fingerprint_haitsma}
+
+        def excerpt(i, start, secs=AUDIO_QUERY_S):
+            """secs of clip i from sample 512 * start: whole frames at 8 kHz
+            (hop 256) and at 5 kHz (hop 64, 320 samples)"""
+            lo = 512 * start
+            return clips[i][lo:lo + int(secs * 8000)].astype(np.float32) / 32768.0
+
+        def plain_haitsma(fp):
+            """knn_haitsma's answer with min-BER swapped for its plain twin,
+            on the backend's own device tensors"""
+            with _plain_quant_path(torch):
+                return [(h.record_id, h.score)
+                        for h in asyncio.run(backend.knn_haitsma(0, fp, k))]
+
+        # the queries' fingerprints, on the card and on the CPU, before the
+        # main path's counts start: they are the client's work, not the
+        # server's
+        fp_one = {}
+        for j, algo in enumerate(AUDIO_ALGOS):
+            x = excerpt(3 + 5 * j, 170 + 9 * j)
+            fp_one[algo] = fns[algo](x, 8000, 0, 0, device=dev).fingerprint
+            check(fp_one[algo] == fns[algo](x, 8000, 0, 0, device="cpu").fingerprint,
+                  f"{algo} query fingerprint on the card == on the CPU")
+        fps = [amod.fingerprint_haitsma(excerpt(i, 30 + 40 * i), 8000, 0, 0,
+                                        device=dev).fingerprint for i in range(8)]
+        q_new = amod.fingerprint_haitsma(excerpt(AUDIO_BATCH + 1, 160), 8000, 0, 0,
+                                         device=dev).fingerprint
+
+        # ---- the main path: launch counts are read over exactly this block
+        reset_counts()
+        ingest_ms, single = {}, {}
+        for algo in AUDIO_ALGOS:
+            body = b"".join(struct.pack("<QI", base[algo] + i, len(c.tobytes())) + c.tobytes()
+                            for i, c in enumerate(clips[:AUDIO_BATCH]))
+            st, res, ms = call("POST", "/v1/ingest/audio/batch/0", body,
+                               f"sample_rate=8000&encoding=s16&algorithm={algo}")
+            check(st == 201 and res["count"] == AUDIO_BATCH, f"{algo} batch ingest: {st}")
+            ingest_ms[algo] = ms
+            for i in (0, AUDIO_BATCH - 1):
+                want = amod.fingerprint_audio_batch(algo, [clips[i]], 8000, 0, [0],
+                                                    device="cpu")[0].fingerprint
+                check(res["records"][i]["fingerprint_hex"] == want.hex(),
+                      f"{algo} batch clip {i} == the CPU's fingerprint")
+            # one single-clip request per algorithm (f32 body)
+            x = clips[AUDIO_BATCH].astype(np.float32) / 32768.0
+            rid = base[algo] + AUDIO_BATCH
+            st, res, ms = call("POST", f"/v1/ingest/audio/0/{rid}", x.astype("<f4").tobytes(),
+                               f"sample_rate=8000&algorithm={algo}")
+            check(st == 201 and res["fingerprint_hex"] == fns[algo](
+                x, 8000, 0, rid, device="cpu").fingerprint.hex(),
+                f"{algo} single ingest == the CPU's fingerprint")
+            single[algo] = ms
+        wcfg = amod.WatermarkConfig(key="smoke-key")
+        marked = amod.embed_watermark(_fixed_audio(5.0), 8000, 0xBEEF, wcfg)
+        st, res, _ = call("POST", "/v1/ingest/audio/0/5000000", marked.astype("<f4").tobytes(),
+                          "sample_rate=8000&algorithm=watermark&watermark_key=smoke-key")
+        check(st == 200 and res["detected"] and res["payload"] == 0xBEEF,
+              f"watermark report: {st} {res}")
+        ingest_launches = read_counts()
+        check(ingest_launches["select_topk"] > 0,
+              f"the served ingest ran the peak picker's selection: {ingest_launches}")
+
+        lat = {}
+
+        def query(form, body, reps=AUDIO_REPS):
+            times, res = [], None
+            for _ in range(reps + 1):  # the first call uploads / warms
+                st, res, ms = call("POST", "/v1/query", body)
+                check(st == 200, f"{form}: {st} {res}")
+                times.append(ms)
+            lat[form] = statistics.median(times[1:])
+            return res
+
+        for j, algo in enumerate(AUDIO_ALGOS):
+            i, fp = 3 + 5 * j, fp_one[algo]
+            res = query(f"fingerprint_hex_{algo}", {
+                "tenant_id": 0, "modality": "audio", "k": k, "algorithm": algo,
+                "fingerprint_hex": fp.hex()})
+            check(res["hits"][0]["record_id"] == base[algo] + i,
+                  f"{algo}: the excerpt's clip at rank 1: {res['hits'][:2]}")
+            want = (plain_haitsma(fp) if algo == "haitsma" else
+                    [(h.record_id, h.score) for h in asyncio.run(backend.knn_audio(
+                        0, amod.ALGORITHM_WANG if algo == "wang" else amod.ALGORITHM_PANAKO,
+                        fp, k))])
+            check(_hit_rows(res["hits"]) == want, f"{algo} hits == plain path")
+        res = query("fingerprints_hex_haitsma", {
+            "tenant_id": 0, "modality": "audio", "k": k, "algorithm": "haitsma",
+            "fingerprints_hex": [f.hex() for f in fps]})
+        check([r["hits"][0]["record_id"] for r in res["results"]]
+              == [base["haitsma"] + i for i in range(8)], "8 Haitsma excerpts at rank 1")
+        check([_hit_rows(r["hits"]) for r in res["results"]]
+              == [plain_haitsma(f) for f in fps],
+              "fingerprints_hex hits == plain path")
+        # a Haitsma upsert a query then finds (the stream matrix re-uploads),
+        # and a delete
+        new = clips[AUDIO_BATCH + 1]
+        st, _, _ = call("POST", "/v1/ingest/audio/0/4000000",
+                        (new.astype(np.float32) / 32768.0).astype("<f4").tobytes(),
+                        "sample_rate=8000&algorithm=haitsma")
+        check(st == 201, "haitsma upsert")
+        body = {"tenant_id": 0, "modality": "audio", "k": k, "algorithm": "haitsma",
+                "fingerprint_hex": q_new.hex()}
+        st, res, _ = call("POST", "/v1/query", body)
+        check(st == 200 and res["hits"][0]["record_id"] == 4000000, "upserted clip at rank 1")
+        check(_hit_rows(res["hits"]) == plain_haitsma(q_new),
+              "after the upsert: hits == plain path")
+        st, _, _ = call("DELETE", "/v1/records/0/4000000")
+        check(st == 200, "delete")
+        st, res, _ = call("POST", "/v1/query", body)
+        check(st == 200 and all(h["record_id"] != 4000000 for h in res["hits"]),
+              "deleted clip no longer returned")
+        check(_hit_rows(res["hits"]) == plain_haitsma(q_new),
+              "after the delete: hits == plain path")
+        launches = read_counts()
+        # ---- end of the main path
+        check(launches["min_ber_batch"] > 0, f"min-BER launched: {launches}")
+        cache = backend._haitsma[0]
+        out.update({
+            "rows": {"haitsma": cache.n, "haitsma_capacity": list(cache.data.shape),
+                     "wang_postings": len(backend._audio[(0, amod.ALGORITHM_WANG)])},
+            "load_s": load,
+            "p50_ms": lat,
+            "batch_ingest_clips_per_s": {a: AUDIO_BATCH / (ms / 1e3)
+                                         for a, ms in ingest_ms.items()},
+            "single_ingest_ms": single,
+            "launches": launches,
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "phase_s": time.perf_counter() - t_phase,
+        })
+        say("audio: " + json.dumps(out))
+        return out
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        _close_backend(torch, server, backend, tmp)
 
 
 # -- the A/B timings -----------------------------------------------------------
@@ -3128,7 +3573,7 @@ def _findings_line(kernels: dict, served: list) -> dict:
         ("select_topk", scan, 309, "select",
          pick(kernels["select"], n=16384, k=2048), {"q": 1, "k": 2048}),
     )
-    return {"kernels": [
+    kernels_line = [
         {"name": name, "route": "cuda",
          "source": "ucfp_tpu_torch/csrc/" + src.get(key, source[path]),
          "replaces": f"ucfp_tpu/ops/{path}:{line}",
@@ -3138,17 +3583,32 @@ def _findings_line(kernels: dict, served: list) -> dict:
          # the fused scans' two halves: cells kernel and selection
          **{f: row[f] for f in ("cells_ms", "select_ms", "device_ms", "cells_device_ms",
                                 "select_device_ms", "blocks_per_sm", "bound_popc_ms",
-                                "kernel_bytes", "path") if f in row},
+                                "bound_mma_ms", "kernel_bytes", "path") if f in row},
          "shape": {**shape, **({"c": row["c"]} if "c" in row else {"n": row["n"]})}}
         for name, path, line, key, row, shape in rows
-    ]}
+    ]
+    # min-BER (phase 13): no Pallas kernel; it replaces min_ber_batch's
+    # lax.fori_loop
+    audio = next((p for p in served if "min_ber" in p), None)
+    if audio is not None:
+        row = next(r for r in audio["min_ber"] if r["case"] == "served")
+        kernels_line.append({
+            "name": "min_ber_batch", "route": "cuda", "source": "ucfp_tpu_torch/csrc/min_ber.cu",
+            "replaces": "ucfp_tpu/ops/audio/haitsma.py:203",
+            "launches": launches.get("min_ber_batch"),
+            "max_abs_err": max(r["max_abs_err"] for r in audio["min_ber"]),
+            **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "bound_popc_ms", "bound_mma_ms")},
+            "shape": {"r": row["r"], "tb": row["tb"], "q_true": row["q_true"],
+                      "qb": row["qb"]}})
+    return {"kernels": kernels_line}
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="device,build,kernels,conformance,served,int8,qbatch,int4,"
-                           "int2,sketch,sharded,bench")
+                           "int2,sketch,sharded,bench,audio")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -3181,6 +3641,8 @@ def main() -> int:
                         ("sharded", phase_sharded), ("bench", phase_bench)):
         if name in phases:
             served.append(phase(torch, dev))
+    if "audio" in phases:
+        served.append(phase_audio(torch, dev, card))
     if kernels is not None:
         say(json.dumps(_findings_line(kernels, served)))
     say(json.dumps({"ok": True, "device": {

@@ -36,7 +36,11 @@ TINY = {
     "bench_cosine_int8_10m_768": {"n_rows": ROWS, "d": 64, "iters": 2, "rounds": 1,
                                   "recall_q": 4, "recall_chunk": 2, "shards": 1,
                                   "qbatch": 4},
+    "bench_audio_xrt": {"secs": 1.0, "iters": 2},
+    "bench_audio_match": {"n_records": 1000, "per": 10, "queries": 3},
 }
+AUDIO_KEYS = {"audio_wang_xrt", "audio_panako_xrt", "audio_haitsma_xrt",
+              "audio_haitsma_fft_xrt", "audio_match_p50_ms_1m_landmarks"}
 X64_KEYS = {
     "query_hamming_fused_p50_ms_10m_x64bit", "query_cosine_int8_hybrid_p50_ms_10m_x64",
     "query_cosine_int8_mxu_p50_ms_10m_x64", "query_cosine_int8_fused_p50_ms_10m_x64",
@@ -69,6 +73,11 @@ def _main(capsys):
 @pytest.mark.parametrize("name", sorted(set(TINY) - {"bench_cosine_int8_10m_768"}))
 def test_bench_function_returns_a_finite_number(name):
     assert _positive(getattr(bench, name)(CPU, **TINY[name]))
+
+
+@pytest.mark.parametrize("algorithm", ["wang", "panako", "haitsma", "haitsma_fft"])
+def test_audio_xrt_each_algorithm(algorithm):
+    assert _positive(bench.bench_audio_xrt(CPU, algorithm, **TINY["bench_audio_xrt"]))
 
 
 def test_main_prints_the_x768_line_then_a_short_last_line(knobs, capsys):
@@ -104,8 +113,8 @@ def test_main_prints_the_x768_line_then_a_short_last_line(knobs, capsys):
     assert last["unit"] == "images/s"
     assert last["device"] == {"type": "cpu", "card": "cpu"}
     extra = last["extra"]
-    assert set(extra) == X64_KEYS | {"multihash_images_per_sec",
-                                     "query_cosine_p50_ms_1m_x64"}
+    assert set(extra) == X64_KEYS | AUDIO_KEYS | {"multihash_images_per_sec",
+                                                  "query_cosine_p50_ms_1m_x64"}
     assert all(_positive(v) for v in extra.values())
 
 
@@ -128,7 +137,7 @@ def test_budget_skips_are_printed_as_skipped_never_as_numbers(knobs, capsys):
     last = json.loads(lines[-1])
     assert _positive(last["value"])  # the headline runs before the budget
     skipped = {**x768, **last["extra"]}
-    assert len(skipped) == 6
+    assert len(skipped) == 11
     assert all(v == "skipped: bench budget exhausted" for v in skipped.values())
 
 

@@ -27,7 +27,14 @@ substring of "phash"); UCFP_BENCH_FULL=1 adds the exact comparison keys
 per-shard int2 key); UCFP_BENCH_BUDGET_S (default 1800) skips the keys
 that start after it.
 
-Not ported here: the HTTP, text and audio keys, the serving-overhead key
+The audio keys (the reference's names): audio_wang_xrt, audio_panako_xrt,
+audio_haitsma_xrt and audio_haitsma_fft_xrt are a 60 s clip's extraction
+time as a real-time factor (seconds of audio per second), each step's
+clip nudged by the previous step's landmark count or words;
+audio_match_p50_ms_1m_landmarks is knn_audio's p50 over 10^4 stored
+records of 100 landmarks (host numpy, in an EmbeddedBackend on the device).
+
+Not ported here: the HTTP and text keys, the serving-overhead key
 (it drives scripts/ against the reference), parity (chip_smoke.py phase 4
 holds the image digests on the card), the sharded merge model and every
 key derived from it (its constants are link speeds of the reference's
@@ -544,6 +551,106 @@ def bench_cosine_int8_10m_768(dev, k: int = 10, iters: int = 8, qbatch: int = 32
     return out
 
 
+# -- audio ------------------------------------------------------------------------
+
+
+def _tone_clip(secs: float, sr: int, gated: bool) -> torch.Tensor:
+    """The reference bench's 60 s test signal (440 Hz plus a 1200 Hz tone,
+    gated at 0.5 Hz in the 8 kHz clip), as float32 on the host."""
+    import numpy as np
+
+    t = np.arange(int(secs * sr)) / sr
+    hi = 0.2 * np.sin(2 * np.pi * 1200 * t)
+    if gated:
+        hi = hi * (np.sin(2 * np.pi * 0.5 * t) > 0)
+    return torch.from_numpy((0.4 * np.sin(2 * np.pi * 440 * t) + hi).astype(np.float32))
+
+
+def bench_audio_xrt(dev, algorithm: str = "wang", secs: float = 60.0,
+                    iters: int = 128) -> float:
+    """x real time of one clip's extraction on the device: wang / panako
+    (integer spectrogram, peak picking, pairing; 8 kHz) or haitsma /
+    haitsma_fft (5 kHz words). Each step adds (the previous step's
+    landmark count, or its words' low bits, mod 7) * 1e-7 to the clip's
+    first sample, a data dependency between steps."""
+    from .ops.audio import constellation as con
+    from .ops.audio import dsp as adsp
+    from .ops.audio import haitsma as hops
+
+    haitsma = algorithm.startswith("haitsma")
+    x0 = _tone_clip(secs, hops.HAITSMA_SR if haitsma else 8000, not haitsma).to(dev)
+    cfg = con.PanakoConfig() if algorithm == "panako" else con.WangConfig()
+    pair = con.panako_triplets if algorithm == "panako" else con.wang_pairs
+
+    def delta(x):
+        if haitsma:
+            w = hops.haitsma_words(x, 300.0, 2000.0, algorithm == "haitsma_fft")
+            return (w & 7).sum() % 7
+        power = adsp.stft_power_int(x, 1024, 256, True).to(torch.float32)
+        t, f, v = con.pick_peaks(power, 8000 // 256, cfg.peaks_per_sec,
+                                 cfg.min_anchor_mag_db)
+        _h, _aux, ok = pair(t, f, v, cfg.fan_out, cfg.target_zone_t, cfg.target_zone_f)
+        return ok.sum() % 7
+
+    def step(x):
+        return torch.cat([x[:1] + delta(x).to(torch.float32) * 1e-7, x[1:]])
+
+    return secs / _timed(_loop(dev, step, x0), iters)
+
+
+def bench_audio_match(dev, n_records: int = 10_000, per: int = 100,
+                      queries: int = 15) -> float:
+    """knn_audio p50 (ms) at n_records x per landmarks (10^6 postings):
+    the host-side landmark vote, in an EmbeddedBackend on `dev`; every
+    query (a stored record's landmarks shifted by 137 frames) must find
+    its record at rank 1."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from .core import Modality, Record
+    from .index.embedded import EmbeddedBackend
+
+    rng = np.random.default_rng(7)
+    tmp = tempfile.mkdtemp(prefix="ucfp-amatch-")
+    b = EmbeddedBackend(tmp, device=dev)
+
+    async def go():
+        keep, batch = {}, []
+        for rid in range(1, n_records + 1):
+            h = rng.integers(0, 1 << 30, size=per, dtype=np.uint32)
+            t = np.sort(rng.integers(0, 2000, size=per)).astype(np.uint32)
+            pairs = np.stack([h, t], axis=1)
+            if rid % 997 == 0:
+                keep[rid] = pairs
+            batch.append(Record(0, rid, Modality.AUDIO, "audiofp-wang-v1",
+                                pairs.astype("<u4").tobytes()))
+            if len(batch) >= 1000:
+                await b.upsert(batch)
+                batch = []
+        if batch:
+            await b.upsert(batch)
+        lat, rids = [], sorted(keep)
+        for i in range(queries):
+            rid = rids[i % len(rids)]
+            qp = keep[rid].copy()
+            qp[:, 1] += 137
+            t0 = time.perf_counter()
+            hits = await b.knn_audio(0, "audiofp-wang-v1", qp.astype("<u4").tobytes(), 3)
+            lat.append(time.perf_counter() - t0)
+            if not hits or hits[0].record_id != rid:
+                raise RuntimeError(f"audio match: record {rid} not at rank 1")
+        return sorted(lat)[len(lat) // 2] * 1000.0
+
+    try:
+        return asyncio.run(go())
+    finally:
+        b.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # -- the run ----------------------------------------------------------------------
 
 
@@ -559,6 +666,12 @@ def _key_list(full: bool) -> list:
         ("query_cosine_int8_mxu_p50_ms_10m_x64", bench_cosine_int8_10m_mxu, {"iters": 16}),
         ("query_cosine_int8_fused_p50_ms_10m_x64", bench_cosine_int8_10m_fused,
          {"iters": 16}),
+        ("audio_wang_xrt", bench_audio_xrt, {"algorithm": "wang"}),
+        ("audio_panako_xrt", bench_audio_xrt, {"algorithm": "panako"}),
+        ("audio_haitsma_xrt", bench_audio_xrt, {"algorithm": "haitsma", "iters": 32}),
+        ("audio_haitsma_fft_xrt", bench_audio_xrt, {"algorithm": "haitsma_fft",
+                                                    "iters": 8}),
+        ("audio_match_p50_ms_1m_landmarks", bench_audio_match, {}),
     ]
     if full:
         keys += [

@@ -47,11 +47,20 @@ exact except where a per-shard prefilter pool does not cover its shard.
 A micro-batched flush goes through the sharded knn_batch. The CPU never
 shards unless a mesh is passed.
 
-Not in this slice (later ports): LSH / BM25 / audio indexes,
-and autocompaction. Records that need one of those indexes — text (BM25) or
-the LSH, audio-landmark and haitsma algorithms — are refused on write,
-and a data directory that holds them raises UnsupportedError on open
-instead of dropping them.
+Audio (the reference's audio side): Wang and Panako records also go into
+a per-(tenant, algorithm) columnar landmark index (_LandmarkIndex, host
+numpy: knn_audio's offset voting), and Haitsma records into a per-tenant
+padded stream matrix (_StreamCache) that lives on the device as int32
+words plus true lengths; knn_haitsma runs the minimum bit-error-rate
+search (ops.audio.haitsma.min_ber_batch: the kernel csrc/min_ber.cu on
+the card) over every stored stream at once, per shard under a mesh (the
+search is row-parallel), the shards' rows concatenated in row order.
+Replaying the WAL on open rebuilds both.
+
+Not in this slice (later ports): the LSH and BM25 indexes and
+autocompaction. Records that need one of those indexes — text (BM25) or
+the LSH algorithm — are refused on write, and a data directory that holds
+them raises UnsupportedError on open instead of dropping them.
 """
 
 from __future__ import annotations
@@ -89,8 +98,11 @@ LSH_ALGORITHM = "minhash-lsh-h128"
 AUDIO_LANDMARK_ALGOS = ("audiofp-wang-v1", "audiofp-panako-v1")
 HAITSMA_ALGORITHM = "audiofp-haitsma-v1"
 #: algorithms whose queries need an index this slice does not port yet
-LATER_SLICE_ALGOS = frozenset((LSH_ALGORITHM, *AUDIO_LANDMARK_ALGOS,
-                               HAITSMA_ALGORITHM))
+LATER_SLICE_ALGOS = frozenset((LSH_ALGORITHM,))
+#: algorithms with an index of their own beside the packed fingerprint
+#: cache: the columnar batch paths never take them (the reference's gates)
+SPECIAL_INDEX_ALGOS = frozenset((LSH_ALGORITHM, *AUDIO_LANDMARK_ALGOS,
+                                 HAITSMA_ALGORITHM))
 #: the UCFP_KNN_QUANT tiers, whose vector caches hold int8 rows; "none" and
 #: any other value serve the exact f32 path, as in the reference
 QUANT_TIERS = ("int8", "int4", "int2", "sketch")
@@ -117,7 +129,8 @@ def _check_in_slice(algorithm: str, text, where: str) -> None:
     if algorithm in LATER_SLICE_ALGOS:
         raise UnsupportedError(
             f"{where}: algorithm {algorithm!r} needs an index this build "
-            f"does not serve yet (supported: image hashes and vectors)"
+            f"does not serve yet (supported: image hashes, vectors and the "
+            f"classical audio fingerprints)"
         )
     if text is not None:
         raise UnsupportedError(
@@ -264,6 +277,149 @@ class _RowCache:
         self.n -= 1
 
 
+@dataclass
+class _StreamCache:
+    """Variable-length u32 streams packed into one padded matrix [cap,
+    tmax] + true lengths, so a haitsma query is one batched device pass
+    over the whole catalog. Row capacity and tmax both grow by doubling
+    (the reference's _StreamCache, unchanged)."""
+
+    rids: list[int] = field(default_factory=list)
+    rows: dict[int, int] = field(default_factory=dict)
+    data: np.ndarray | None = None  # [cap, tmax] uint32
+    lens: np.ndarray | None = None  # [cap] int32
+    n: int = 0
+    dirty: bool = True
+    device: tuple | None = None
+    gen: int = 0  # bumped on row moves (see _RowCache.gen)
+
+    def upsert(self, rid: int, frames: np.ndarray) -> None:
+        t = len(frames)
+        if self.data is None:
+            tmax = 64
+            while tmax < t:
+                tmax *= 2
+            self.data = np.zeros((64, tmax), np.uint32)
+            self.lens = np.zeros(64, np.int32)
+        if t > self.data.shape[1]:
+            tmax = self.data.shape[1]
+            while tmax < t:
+                tmax *= 2
+            grown = np.zeros((self.data.shape[0], tmax), np.uint32)
+            grown[:, : self.data.shape[1]] = self.data
+            self.data = grown
+        row = self.rows.get(rid)
+        if row is None:
+            if self.n == self.data.shape[0]:
+                grown = np.zeros((self.data.shape[0] * 2, self.data.shape[1]),
+                                 np.uint32)
+                grown[: self.n] = self.data
+                self.data = grown
+                glen = np.zeros(grown.shape[0], np.int32)
+                glen[: self.n] = self.lens
+                self.lens = glen
+            row = self.n
+            self.rows[rid] = row
+            self.rids.append(rid)
+            self.n += 1
+        self.data[row, :] = 0
+        self.data[row, :t] = frames
+        self.lens[row] = t
+        self.dirty = True
+
+    def remove(self, rid: int) -> None:
+        row = self.rows.pop(rid, None)
+        if row is None:
+            return
+        self.gen += 1  # rows move: invalidate deferred rid mappings
+        last = self.n - 1
+        if row != last:
+            self.data[row] = self.data[last]
+            self.lens[row] = self.lens[last]
+            moved = self.rids[last]
+            self.rids[row] = moved
+            self.rows[moved] = row
+        self.rids.pop()
+        self.data[last] = 0
+        self.lens[last] = 0
+        self.n -= 1
+        self.dirty = True
+
+
+class _LandmarkIndex:
+    """Columnar landmark postings, sorted by hash: one vectorized
+    searchsorted answers a whole query's hash lookups, a delete is one
+    boolean-mask filter, and inserts buffer and consolidate lazily on the
+    next read (the reference's _LandmarkIndex, unchanged)."""
+
+    def __init__(self) -> None:
+        self.hashes = np.zeros(0, np.uint32)
+        self.rids = np.zeros(0, np.uint64)
+        self.ts = np.zeros(0, np.int64)
+        self._pend: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+
+    def __len__(self) -> int:
+        return len(self.hashes) + sum(len(p[0]) for p in self._pend)
+
+    def insert(self, rid: int, pairs: np.ndarray) -> None:
+        """pairs [L, 2] uint32 (hash, t)."""
+        if len(pairs) == 0:
+            return
+        self._pend.append((
+            pairs[:, 0].astype(np.uint32),
+            np.full(len(pairs), rid, np.uint64),
+            pairs[:, 1].astype(np.int64),
+        ))
+
+    def _consolidate(self) -> None:
+        if not self._pend:
+            return
+        ph = np.concatenate([p[0] for p in self._pend])
+        pr = np.concatenate([p[1] for p in self._pend])
+        pt = np.concatenate([p[2] for p in self._pend])
+        order = np.argsort(ph, kind="stable")
+        ph, pr, pt = ph[order], pr[order], pt[order]
+        if len(self.hashes) == 0:
+            self.hashes, self.rids, self.ts = ph, pr, pt
+        else:
+            # the base is already sorted: merge in O(N + P)
+            pos = np.searchsorted(self.hashes, ph, side="right")
+            self.hashes = np.insert(self.hashes, pos, ph)
+            self.rids = np.insert(self.rids, pos, pr)
+            self.ts = np.insert(self.ts, pos, pt)
+        self._pend = []
+
+    def remove(self, rid: int) -> None:
+        self._consolidate()
+        keep = self.rids != np.uint64(rid)
+        self.hashes = self.hashes[keep]
+        self.rids = self.rids[keep]
+        self.ts = self.ts[keep]
+
+    def lookup(self, h_query: np.ndarray):
+        """All postings matching each query hash.
+        -> (qidx [M], rids [M], ts [M]): qidx maps each match back to
+        its position in h_query."""
+        self._consolidate()
+        if len(self.hashes) == 0 or len(h_query) == 0:
+            z = np.zeros(0, np.int64)
+            return z, np.zeros(0, np.uint64), np.zeros(0, np.int64)
+        lo = np.searchsorted(self.hashes, h_query, "left")
+        hi = np.searchsorted(self.hashes, h_query, "right")
+        reps = hi - lo
+        m = int(reps.sum())
+        if m == 0:
+            z = np.zeros(0, np.int64)
+            return z, np.zeros(0, np.uint64), np.zeros(0, np.int64)
+        starts = np.repeat(lo, reps)
+        offs = np.arange(m, dtype=np.int64) - np.repeat(
+            np.cumsum(reps) - reps, reps
+        )
+        idx = starts + offs
+        qidx = np.repeat(np.arange(len(h_query), dtype=np.int64), reps)
+        return qidx, self.rids[idx], self.ts[idx]
+
+
 def _VecCache(dim: int) -> _RowCache:  # noqa: N802 - constructor alias
     return _RowCache(width=dim, dtype=np.float32, track_tags=True)
 
@@ -335,6 +491,10 @@ class EmbeddedBackend(IndexBackend):
         self._records: dict[tuple[int, int], dict] = {}
         self._vec: dict[tuple[int, int], _RowCache] = {}  # (tenant, dim)
         self._ham: dict[tuple[int, str], _RowCache] = {}  # (tenant, algorithm)
+        # (tenant, algorithm) -> columnar postings: wang and panako hashes
+        # share the u32 space, so one index per algorithm
+        self._audio: dict[tuple[int, str], _LandmarkIndex] = {}
+        self._haitsma: dict[int, _StreamCache] = {}  # tenant -> padded streams
         if os.path.exists(self._wal_path) and os.path.getsize(self._wal_path) > 0:
             wal_engine = "auto"  # the existing log's format wins
         # group commit: concurrent requests' appends share one fsync
@@ -403,7 +563,7 @@ class EmbeddedBackend(IndexBackend):
         t = run["tenant_id"]
         alg = run["algorithm"]
         flen = run["flen"]
-        if flen <= 0 or flen % 4 or alg in LATER_SLICE_ALGOS:
+        if flen <= 0 or flen % 4 or alg in SPECIAL_INDEX_ALGOS:
             return False
         hcache = self._ham.get((t, alg))
         if hcache is not None and hcache.width != flen // 4:
@@ -522,6 +682,25 @@ class EmbeddedBackend(IndexBackend):
             # width mismatch: drop any stale row so knn_fingerprint never
             # scores this record against its previous fingerprint
             hcache.remove(rec.record_id)
+        # audio landmark inverted index (wang/panako offset voting)
+        if old is not None and old["algorithm"] in AUDIO_LANDMARK_ALGOS:
+            self._audio_index_remove(rec.tenant_id, old["algorithm"],
+                                     rec.record_id)
+        if rec.algorithm in AUDIO_LANDMARK_ALGOS:
+            self._audio_index_insert(rec.tenant_id, rec.algorithm,
+                                     rec.record_id, rec.fingerprint)
+        # haitsma padded-stream cache (batched min-BER lookups)
+        if old is not None and old["algorithm"] == HAITSMA_ALGORITHM:
+            sc = self._haitsma.get(rec.tenant_id)
+            if sc and (rec.algorithm != HAITSMA_ALGORITHM
+                       or len(rec.fingerprint) % 4 != 0):
+                # replaced by another algorithm or a misaligned
+                # fingerprint: either way the old stream is stale
+                sc.remove(rec.record_id)
+        if rec.algorithm == HAITSMA_ALGORITHM and len(rec.fingerprint) % 4 == 0:
+            sc = self._haitsma.setdefault(rec.tenant_id, _StreamCache())
+            sc.upsert(rec.record_id,
+                      np.frombuffer(rec.fingerprint, dtype="<u4"))
 
     def _batch_rows_ok(self, recs: list[Record], t: int, alg: str,
                        flen: int, emb: bool) -> bool:
@@ -552,7 +731,7 @@ class EmbeddedBackend(IndexBackend):
         t = first.tenant_id
         alg = first.algorithm
         flen = len(first.fingerprint)
-        if flen == 0 or flen % 4 != 0:
+        if alg in SPECIAL_INDEX_ALGOS or flen == 0 or flen % 4 != 0:
             return False
         emb = first.embedding is not None
         if not self._batch_rows_ok(recs, t, alg, flen, emb):
@@ -591,6 +770,12 @@ class EmbeddedBackend(IndexBackend):
         h = self._ham.get((tenant_id, old["algorithm"]))
         if h:
             h.remove(rid)
+        if old["algorithm"] in AUDIO_LANDMARK_ALGOS:
+            self._audio_index_remove(tenant_id, old["algorithm"], rid)
+        if old["algorithm"] == HAITSMA_ALGORITHM:
+            sc = self._haitsma.get(tenant_id)
+            if sc:
+                sc.remove(rid)
 
     def _tag_code(self, value: str | None) -> int:
         """Intern algorithm/model_id strings to dense int codes for the
@@ -686,7 +871,7 @@ class EmbeddedBackend(IndexBackend):
             fingerprints[0], (bytes, bytearray)) else -1
         ok = (
             n >= 2 and flen > 0 and flen % 4 == 0
-            and algorithm not in LATER_SLICE_ALGOS
+            and algorithm not in SPECIAL_INDEX_ALGOS
             and all(type(fp) is bytes and len(fp) == flen for fp in fingerprints)
             and all(type(r) is int and 0 <= r <= 2**64 - 1 for r in record_ids)
         )
@@ -1716,6 +1901,173 @@ class EmbeddedBackend(IndexBackend):
                 res.append([Hit(record_id=rid, score=s, source=HitSource.VECTOR)
                             for rid, s in out])
             return res
+
+        return await asyncio.to_thread(work)
+
+    # -- audio ------------------------------------------------------------------
+
+    def _audio_index_insert(self, tenant_id: int, algorithm: str, rid: int,
+                            fp: bytes) -> None:
+        pairs = np.frombuffer(fp, dtype="<u4")
+        if pairs.size % 2:
+            return
+        self._audio.setdefault(
+            (tenant_id, algorithm), _LandmarkIndex()
+        ).insert(rid, pairs.reshape(-1, 2))
+
+    def _audio_index_remove(self, tenant_id: int, algorithm: str,
+                            rid: int) -> None:
+        idx = self._audio.get((tenant_id, algorithm))
+        if idx is not None:
+            idx.remove(rid)
+
+    def _device_haitsma(self, cache: _StreamCache):
+        """Padded stream matrix (int32 words) + lengths on the device,
+        row-sharded under a mesh like the ANN caches; re-uploaded whole
+        after any write, as in the reference."""
+        if cache.dirty or cache.device is None:
+            cache.device = (self._put_matrix(cache.data),
+                            self._put_matrix(cache.lens))
+            cache.dirty = False
+        return cache.device
+
+    def _min_ber_rows(self, data, lens, q_pad: np.ndarray, q_true: int) -> np.ndarray:
+        """min_ber_batch over the stream matrix -> [cap] BERs on the host;
+        per shard under a mesh, in row order."""
+        from ..ops.audio import haitsma as hops
+
+        out = []
+        for s, (dev, _lo, _hi) in enumerate(self._blocks(data.shape[0])):
+            ber, _off = hops.min_ber_batch(self._block(data, s), self._block(lens, s),
+                                           self._to_device(q_pad, dev), q_true)
+            out.append(ber.cpu().numpy())
+        return np.concatenate(out)
+
+    async def knn_haitsma(
+        self, tenant_id: int, fingerprint: bytes, k: int
+    ) -> list[Hit]:
+        """Philips-style sliding bit-error-rate lookup, one batched device
+        pass over the whole padded-stream catalog; records rank by minimum
+        BER (score = 1 - ber)."""
+        if k == 0 or len(fingerprint) < 4 or len(fingerprint) % 4:
+            return []
+        q = np.frombuffer(fingerprint, dtype="<u4")
+        cache = self._haitsma.get(tenant_id)
+        if cache is None or cache.n == 0:
+            return []
+
+        def work():
+            with self._lock:
+                if cache.n == 0:
+                    return []
+                tmax = cache.data.shape[1]
+                if len(q) > tmax:
+                    # query longer than every stored stream
+                    return []
+                data, lens = self._device_haitsma(cache)
+                rids = list(cache.rids)
+            qb = 64
+            while qb < len(q):
+                qb *= 2
+            qb = min(qb, tmax)
+            q_pad = np.zeros(qb, np.uint32)
+            q_pad[: len(q)] = q
+            ber = self._min_ber_rows(data, lens, q_pad, len(q))[: len(rids)]
+            scored = [
+                (rid, 1.0 - float(b))
+                for rid, b in zip(rids, ber)
+                if np.isfinite(b) and b < 1.0
+            ]
+            scored.sort(key=lambda x: (-x[1], x[0]))
+            return [
+                Hit(record_id=rid, score=s, source=HitSource.VECTOR)
+                for rid, s in scored[:k]
+            ]
+
+        return await asyncio.to_thread(work)
+
+    async def knn_audio(
+        self, tenant_id: int, algorithm: str, fingerprint: bytes, k: int
+    ) -> list[Hit]:
+        """Shazam-style offset voting over stored Wang/Panako landmarks
+        (host numpy, the reference's code): for each query (hash, t) found
+        in the landmark index, one vote per (query landmark, record,
+        offset bin t_db - t_q); a record scores its largest bin over the
+        query's landmark count. Panako queries also try the adjacent
+        quantized time-ratio steps (bits 12-15) and bin offsets by 8
+        frames (a stretched query's offset drifts)."""
+        if k == 0 or not fingerprint:
+            return []
+        pairs = np.frombuffer(fingerprint, dtype="<u4")
+        if pairs.size == 0 or pairs.size % 2:
+            return []
+        pairs = pairs.reshape(-1, 2)
+        panako = algorithm == "audiofp-panako-v1"
+        off_bin = 8 if panako else 1
+
+        # expand panako hashes across adjacent quantized time-ratio steps
+        h0 = pairs[:, 0].astype(np.uint32)
+        tq0 = pairs[:, 1].astype(np.int64)
+        qi0 = np.arange(len(pairs), dtype=np.int64)
+        if panako:
+            ratio = (h0 >> 12) & 0xF
+            lo_ok = ratio > 0
+            hi_ok = ratio < 15
+            h_exp = np.concatenate(
+                [h0, h0[lo_ok] - (1 << 12), h0[hi_ok] + (1 << 12)]
+            )
+            tq_exp = np.concatenate([tq0, tq0[lo_ok], tq0[hi_ok]])
+            qi_exp = np.concatenate([qi0, qi0[lo_ok], qi0[hi_ok]])
+        else:
+            h_exp, tq_exp, qi_exp = h0, tq0, qi0
+
+        def work():
+            with self._lock:
+                idx = self._audio.get((tenant_id, algorithm))
+                if idx is None or len(idx) == 0:
+                    return []
+                qrep, rids_m, ts_m = idx.lookup(h_exp)
+            if len(qrep) == 0:
+                return []
+            qi = qi_exp[qrep]
+            offb = (ts_m - tq_exp[qrep]) // off_bin
+            # one vote per (query landmark, record, offset-bin): dedupe and
+            # count over a packed 64-bit key sized to the actual ranges
+            urids, rinv = np.unique(rids_m, return_inverse=True)
+            off0 = (offb - offb.min()).astype(np.uint64)
+            qiu = qi.astype(np.uint64)
+            qbits = max(int(qiu.max()) if len(qiu) else 0, 1).bit_length()
+            obits = max(int(off0.max()) if len(off0) else 0, 1).bit_length()
+            rbits = max(len(urids) - 1, 1).bit_length()
+            if rbits + obits + qbits <= 63:
+                key = ((rinv.astype(np.uint64) << (obits + qbits))
+                       | (off0 << qbits) | qiu)
+                distinct = np.unique(key)
+                vote_key, counts = np.unique(distinct >> qbits,
+                                             return_counts=True)
+                rid_idx = (vote_key >> obits).astype(np.int64)
+            else:  # pathological ranges: exact 3-column unique
+                triples = np.stack(
+                    [rinv.astype(np.int64), off0.astype(np.int64),
+                     qiu.astype(np.int64)], axis=1)
+                distinct = np.unique(triples, axis=0)
+                ro_pairs, counts = np.unique(distinct[:, :2], axis=0,
+                                             return_counts=True)
+                rid_idx = ro_pairs[:, 0]
+            best = np.zeros(len(urids), np.int64)
+            np.maximum.at(best, rid_idx, counts)
+            total = max(len(pairs), 1)
+            order = np.lexsort((urids, -best))
+            out = []
+            for i in order[: k]:
+                if best[i] <= 0:
+                    break
+                out.append(Hit(
+                    record_id=int(urids[i]),
+                    score=min(float(best[i]) / total, 1.0),
+                    source=HitSource.VECTOR,
+                ))
+            return out
 
         return await asyncio.to_thread(work)
 

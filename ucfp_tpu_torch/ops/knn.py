@@ -172,9 +172,11 @@ def int8_dots(qq: torch.Tensor, q8m: torch.Tensor) -> torch.Tensor:
     The reference leaves this product to XLA (lax.dot_general with an
     int32 result), outside any Pallas kernel, and the port leaves it to
     the library: torch._int_mm on CUDA, which takes at least
-    INT_MM_MIN_M rows (the block gets zero rows, sliced off after), and
-    an int32 matmul on the CPU. Never a float product: a float copy of
-    the catalog would undo the tier."""
+    INT_MM_MIN_M rows (the block gets zero rows, sliced off after). No
+    float copy of the catalog on the card: it would undo the tier. On
+    the CPU, a float64 product of the same integers, exact because every
+    partial sum is an integer of magnitude at most D * 2^14 < 2^53, and
+    an order of magnitude faster there than an int32 matmul."""
     q, d = qq.shape
     c, d8 = q8m.shape
     if qq.dtype != torch.int8 or q8m.dtype != torch.int8 or d > d8:
@@ -183,7 +185,7 @@ def int8_dots(qq: torch.Tensor, q8m: torch.Tensor) -> torch.Tensor:
             f"{tuple(qq.shape)} and {q8m.dtype} {tuple(q8m.shape)}"
         )
     if q8m.device.type == "cpu":
-        return qq.to(torch.int32) @ q8m[:, :d].to(torch.int32).T
+        return (qq.double() @ q8m[:, :d].double().T).to(torch.int32)
     if d8 % INT_MM_ALIGN or c % INT_MM_ALIGN:
         raise ValueError(
             f"torch._int_mm needs D8 and C to be multiples of "

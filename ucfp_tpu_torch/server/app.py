@@ -1,4 +1,5 @@
-"""Server composition for the image + vector slice (port of ucfp_tpu/server/app.py).
+"""Server composition for the image, vector and audio slices (port of
+ucfp_tpu/server/app.py).
 
   * public: /healthz
   * protected routes behind the auth middleware: bearer (or X-Api-Key)
@@ -48,6 +49,14 @@ def build_server(
     r.add("POST", "/v1/ingest/embedding/batch/{tenant_id}",
           h.ingest_embedding_batch)
     r.add("POST", "/v1/ingest/image/{tenant_id}/{record_id}", h.ingest_image)
+    r.add("POST", "/v1/ingest/audio/batch/{tenant_id}", h.ingest_audio_batch)
+    r.add("POST", "/v1/ingest/audio/{tenant_id}/{record_id}", h.ingest_audio)
+    r.add("POST", "/v1/ingest/audio/{tenant_id}/{record_id}/stream",
+          h.ingest_audio_stream)
+    r.add("POST", "/v1/ingest/audio/{tenant_id}/{record_id}/watermark",
+          h.ingest_audio_watermark)
+    r.add("POST", "/v1/pipeline/inspect/audio", h.inspect_audio)
+    r.add("POST", "/v1/pipeline/inspect/audio/{tenant_id}", h.inspect_audio)
 
     server = HttpServer(
         r,

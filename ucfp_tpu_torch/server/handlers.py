@@ -13,10 +13,16 @@ the reference for the same request:
              POST /v1/ingest/image/{tid}/{rid}     ?algorithm=multi|phash|dhash|ahash
              POST /v1/ingest/image/batch/{tid}     framed images, one device batch
              POST /v1/ingest/embedding/batch/{tid} framed f32 rows
+             POST /v1/ingest/audio/{tid}/{rid}     ?algorithm=wang|panako|haitsma|watermark
+             POST /v1/ingest/audio/{tid}/{rid}/watermark
+             POST /v1/ingest/audio/batch/{tid}     framed PCM clips, one device
+                                                   pass per equal-length group
 
-Image hashing runs on the backend's device. Query shapes that need an
-index this build does not serve yet (BM25 terms, LSH / audio
-fingerprints, the embedding reranker, semantic image ingest) answer 501.
+Image hashing and the audio fingerprints run on the backend's device.
+Query shapes and routes that need what this build does not serve yet
+(BM25 terms, LSH fingerprints, the embedding reranker, semantic image
+ingest, the neural audio embedder, the audio stream route, the audio
+inspector) answer 501.
 
 tenant_guard: a key with tenant 0 is the service bearer and may touch any
 tenant; any other key must match the path/body tenant exactly or gets 403.
@@ -41,7 +47,10 @@ from ..core import (
 )
 from ..index.embedded import LATER_SLICE_ALGOS, EmbeddedBackend
 from ..matcher import Matcher
+from ..modality import audio as amod
 from ..modality import image as imod
+from ..ops.audio.constellation import PanakoConfig, WangConfig
+from ..ops.audio.haitsma import HaitsmaConfig
 from ..ops import imagehash
 from .auth import ApiKeyContext
 from .http import HttpError, Request, Response
@@ -158,6 +167,20 @@ def _algo_gate(algorithm_id: str) -> None:
 
 def _not_served(what: str) -> HttpError:
     return HttpError(501, "unsupported", f"{what} is not served by this build yet")
+
+
+def _audio_pcm(req: Request, raw) -> np.ndarray:
+    """Decode a raw PCM body per ?encoding= (f32 default, s16 the
+    half-the-bytes wire for 16-bit-sourced audio, value-identical)."""
+    enc = req.query.get("encoding", "f32")
+    try:
+        if enc == "f32":
+            return amod.decode_f32le(raw)
+        if enc == "s16":
+            return amod.decode_s16le(raw)
+    except UcfpError as e:
+        raise _err(e)
+    raise HttpError(400, "bad_query", "encoding must be f32 or s16")
 
 
 def _ingest_response(rec: Record) -> Response:
@@ -478,10 +501,22 @@ class Handlers:
                 raise HttpError(400, "bad_query", "fingerprints_hex entry is not hex")
             if algorithm in LATER_SLICE_ALGOS:
                 raise _not_served(f"{algorithm} matching")
+            # the single-fingerprint path's routing: landmark offset voting
+            # and sliding BER are other metrics than raw Hamming
             if algorithm == imod.ALGORITHM_MULTI:
                 results = await self.index.knn_multihash(
                     tenant_id, fps, k, self._multihash_weights(body)
                 )
+                approx = False
+            elif algorithm in (amod.ALGORITHM_WANG, amod.ALGORITHM_PANAKO):
+                results = [
+                    await self.index.knn_audio(tenant_id, algorithm, fp, k)
+                    for fp in fps
+                ]
+                approx = False
+            elif algorithm == amod.ALGORITHM_HAITSMA:
+                results = [await self.index.knn_haitsma(tenant_id, fp, k)
+                           for fp in fps]
                 approx = False
             else:
                 approx = self.index.fingerprint_is_approximate(
@@ -514,7 +549,11 @@ class Handlers:
                 raise HttpError(400, "bad_query", "fingerprint_hex is not hex")
             if algorithm in LATER_SLICE_ALGOS:
                 raise _not_served(f"{algorithm} matching")
-            if algorithm == imod.ALGORITHM_MULTI:
+            if algorithm in (amod.ALGORITHM_WANG, amod.ALGORITHM_PANAKO):
+                hits = await self.index.knn_audio(tenant_id, algorithm, fp, k)
+            elif algorithm == amod.ALGORITHM_HAITSMA:
+                hits = await self.index.knn_haitsma(tenant_id, fp, k)
+            elif algorithm == imod.ALGORITHM_MULTI:
                 # weighted component comparison: raw Hamming over the
                 # 536-byte bundle would XOR f32 histogram bytes
                 res = await self.index.knn_multihash(
@@ -591,13 +630,20 @@ class Handlers:
     # -- ingest --------------------------------------------------------------------
 
     @staticmethod
-    def _in_range(req: Request, name: str, default, lo, hi):
-        """Tunables are validated against the manifest's bounds (400)."""
-        v = req.qp_int(name, default)
+    def _in_range(req: Request, name: str, default, lo, hi, float_=False,
+                  alias: Optional[str] = None):
+        """Tunables are validated against the manifest's bounds (400).
+        `alias` is the reference AudioParams' prefixed spelling
+        (panako_* / haitsma_* / watermark_*); it wins when both are
+        present."""
+        use = name
+        if alias is not None and alias in req.query:
+            use = alias
+        v = req.qp_float(use, default) if float_ else req.qp_int(use, default)
         if v is not None and not (lo <= v <= hi):
             raise HttpError(
                 400, "bad_query",
-                f"{name} must be within [{lo}, {hi}], got {v}",
+                f"{use} must be within [{lo}, {hi}], got {v}",
             )
         return v
 
@@ -811,3 +857,202 @@ class Handlers:
             },
             status=201,
         )
+
+    # -- ingest: audio ---------------------------------------------------------------
+
+    async def ingest_audio_batch(self, req: Request) -> Response:
+        """Many clips, one request, one device pass per equal-length group,
+        one WAL commit.
+
+        Body framing: repeated [u64 LE record_id][u32 LE length][PCM
+        bytes]. Query: ?sample_rate= (required, shared),
+        ?algorithm=wang|panako|haitsma (+ the single route's tunables),
+        ?encoding=f32|s16, ?quiet=1. Records equal the single route's."""
+        tid = _path_tenant(req)
+        tenant_guard(_ctx(req), tid)
+        sample_rate = req.qp_int("sample_rate", None)
+        if sample_rate is None:
+            raise HttpError(400, "bad_query", "sample_rate is required")
+        algorithm = req.query.get("algorithm", "wang")
+        _algo_gate(algorithm)
+        if algorithm not in ("wang", "panako", "haitsma"):
+            raise HttpError(
+                400, "bad_algorithm",
+                f"batch ingest supports wang|panako|haitsma, "
+                f"not {algorithm!r}",
+            )
+        cfg = self._audio_cfg(req, algorithm)
+        enc = req.query.get("encoding", "f32")
+        if enc not in ("f32", "s16"):
+            raise HttpError(400, "bad_query", "encoding must be f32 or s16")
+        width = 4 if enc == "f32" else 2
+        raw = req.body
+        mv = memoryview(raw)
+        rids: list[int] = []
+        clips: list[np.ndarray] = []
+        off = 0
+        while off < len(raw):
+            if off + 12 > len(raw):
+                raise HttpError(400, "bad_body",
+                                "truncated batch frame header")
+            rid, ln = struct.unpack_from("<QI", raw, off)
+            off += 12
+            if off + ln > len(raw):
+                raise HttpError(400, "bad_body",
+                                "truncated batch frame body")
+            if ln == 0 or ln % width != 0:
+                raise HttpError(
+                    400, "bad_body",
+                    f"clip length must be a non-zero multiple of "
+                    f"{width} ({enc} LE)",
+                )
+            rids.append(rid)
+            if enc == "f32":
+                clips.append(np.frombuffer(mv[off:off + ln], dtype="<f4")
+                             .astype(np.float32))
+            else:
+                # raw i16 straight through (the batch's s16 fast path)
+                clips.append(np.frombuffer(mv[off:off + ln], dtype="<i2"))
+            off += ln
+        if not rids:
+            raise HttpError(400, "bad_body", "empty batch")
+        if len(rids) > 256:
+            raise HttpError(400, "bad_body", "batch exceeds 256 clips")
+
+        try:
+            recs = await asyncio.to_thread(
+                amod.fingerprint_audio_batch,
+                algorithm, clips, sample_rate, tid, rids, cfg, self.device,
+            )
+        except UcfpError as e:
+            raise _err(e)
+        await self.index.upsert(recs)
+        if req.query.get("quiet") == "1":
+            return Response.json(
+                {"count": len(recs), "algorithm": recs[0].algorithm},
+                status=201,
+            )
+        return Response.json(
+            {
+                "count": len(recs),
+                "algorithm": recs[0].algorithm,
+                "records": [
+                    {
+                        "record_id": r.record_id,
+                        "fingerprint_hex": r.fingerprint.hex(),
+                        "fingerprint_bytes": len(r.fingerprint),
+                    }
+                    for r in recs
+                ],
+            },
+            status=201,
+        )
+
+    def _audio_cfg(self, req: Request, algorithm: str):
+        """Classical-audio tunables: the one place the names, defaults,
+        ranges and aliases live, for the single and the batch route."""
+        if algorithm == "wang":
+            return WangConfig(
+                fan_out=self._in_range(req, "fan_out", 10, 1, 32),
+                target_zone_t=self._in_range(req, "target_zone_t", 63, 1, 256),
+                target_zone_f=self._in_range(req, "target_zone_f", 64, 1, 256),
+                peaks_per_sec=self._in_range(req, "peaks_per_sec", 30, 1, 120),
+                min_anchor_mag_db=self._in_range(
+                    req, "min_anchor_mag_db", -50.0, -120.0, 0.0, float_=True
+                ),
+                local_floor=req.qp_bool("local_floor", False),
+            )
+        if algorithm == "panako":
+            return PanakoConfig(
+                fan_out=self._in_range(req, "fan_out", 5, 1, 32,
+                                       alias="panako_fan_out"),
+                target_zone_t=self._in_range(
+                    req, "target_zone_t", 96, 1, 256,
+                    alias="panako_target_zone_t"),
+                target_zone_f=self._in_range(
+                    req, "target_zone_f", 96, 1, 256,
+                    alias="panako_target_zone_f"),
+                peaks_per_sec=self._in_range(
+                    req, "peaks_per_sec", 30, 1, 120,
+                    alias="panako_peaks_per_sec"),
+                min_anchor_mag_db=self._in_range(
+                    req, "min_anchor_mag_db", -50.0, -120.0, 0.0,
+                    float_=True, alias="panako_min_anchor_mag_db"),
+            )
+        return HaitsmaConfig(
+            fmin=self._in_range(req, "fmin", 300.0, 50.0, 2000.0,
+                                float_=True, alias="haitsma_fmin"),
+            fmax=self._in_range(req, "fmax", 2000.0, 500.0, 2500.0,
+                                float_=True, alias="haitsma_fmax"),
+            # flagged ucfp-int-fft-v1 spectrogram (forks config_hash)
+            fft=req.qp_bool("fft", req.qp_bool("haitsma_fft", False)),
+        )
+
+    async def ingest_audio(self, req: Request) -> Response:
+        tid, rid = _path_ids(req)
+        tenant_guard(_ctx(req), tid)
+        if req.query.get("input_id"):
+            raise _not_served("the inputs cache (?input_id=)")
+        sample_rate = req.qp_int("sample_rate", None)
+        if sample_rate is None:
+            raise HttpError(400, "bad_query", "sample_rate is required")
+        algorithm = req.query.get("algorithm", "wang")
+        _algo_gate(algorithm)
+        samples = _audio_pcm(req, req.body)
+        fingerprint = {"wang": amod.fingerprint_wang, "panako": amod.fingerprint_panako,
+                       "haitsma": amod.fingerprint_haitsma}.get(algorithm)
+        try:
+            if fingerprint is not None:
+                rec = await asyncio.to_thread(
+                    fingerprint, samples, sample_rate, tid, rid,
+                    self._audio_cfg(req, algorithm), self.device)
+            elif algorithm == "neural":
+                raise _not_served("the neural audio embedder")
+            elif algorithm == "watermark":
+                # the PN key is a per-tenant secret (header preferred over
+                # the query: keys in URLs leak into logs)
+                wkey = (req.headers.get("x-watermark-key")
+                        or req.query.get("watermark_key"))
+                if not wkey:
+                    raise HttpError(
+                        400, "bad_query",
+                        "watermark requires the per-tenant key "
+                        "(X-Watermark-Key header or watermark_key param)",
+                    )
+                wcfg = amod.WatermarkConfig(
+                    key=wkey,
+                    threshold=self._in_range(
+                        req, "threshold", 0.5, 0.0, 1.0, float_=True,
+                        alias="watermark_threshold")
+                )
+                rep = await asyncio.to_thread(
+                    amod.detect_watermark, samples, sample_rate, wcfg)
+                # a report, not a Record (audio.rs:333-400)
+                return Response.json(
+                    {
+                        "detected": rep.detected,
+                        "payload": rep.payload,
+                        "confidence": rep.confidence,
+                    }
+                )
+            else:
+                raise HttpError(
+                    400, "bad_algorithm", f"unknown audio algorithm {algorithm!r}"
+                )
+        except UcfpError as e:
+            raise _err(e)
+        await self.index.upsert([rec])
+        return _ingest_response(rec)
+
+    async def ingest_audio_watermark(self, req: Request) -> Response:
+        """The dedicated watermark route: ?algorithm=watermark on the main
+        audio route."""
+        req.query = dict(req.query)
+        req.query["algorithm"] = "watermark"
+        return await self.ingest_audio(req)
+
+    async def ingest_audio_stream(self, req: Request) -> Response:
+        raise _not_served("the audio stream route")
+
+    async def inspect_audio(self, req: Request) -> Response:
+        raise _not_served("the audio inspector")
