@@ -107,12 +107,17 @@ each:
                   landmark-vote p50), each a finite positive number, with
                   #4, #6, #7 and #8 launched and the last line parsed
  13. audio        the classical audio path: (a) the min-BER kernel
-                  (csrc/min_ber.cu) bit-equal to its plain version (BER
-                  bits and offsets) at the served shape (2^14 rows x
-                  Tb 4,096, a 359-word query), on a tie-heavy catalog,
-                  with rows shorter than the query and dead rows, at
-                  q_true = 1 and q_true = Tb, and on one row of 2^18
-                  words; (b) the integer spectrograms (n_fft 1024 / shift
+                  (csrc/min_ber.cu, the binary tensor cores) bit-equal to
+                  its plain version (BER bits and offsets) at the served
+                  shape (2^14 rows x Tb 4,096, a 359-word query), on a
+                  tie-heavy catalog, with rows shorter than the query and
+                  dead rows, at q_true = 1 and q_true = Tb, and on one row
+                  of 2^18 words; and with random words past each row's
+                  length and past q_true: at q_true = 100, at q_true = 0,
+                  7, 8 and 9, at 201 offsets a row (no multiple of 128),
+                  and at q_true = 1,100 (three passes of the kernel's 512
+                  query words), and at Tb = 1,021 (rows not 16-byte
+                  aligned); (b) the integer spectrograms (n_fft 1024 / shift
                   8, 2048 / shift 14, the integer FFT), the peak picker,
                   Wang pairs, Panako triplets and Haitsma words on a 60 s
                   clip on the card bit-equal to the CPU, and the 8
@@ -136,8 +141,8 @@ phase's requests and a read just after (in phase 12, around the bench's
 run). Then one JSON line with every kernel's numbers (launches summed over
 phases 5-13), and last the line {"ok": true, "device": {...}}.
 --phases picks a subset (default: all thirteen). One more phase, ab, is
-in no default run: the times of #13, #4 / #5, #6, #2, #7 and the
-one-query selection alone, with no check, for an A/B against a parent's
+in no default run: the times of #13, #4 / #5, #6, #2, #7, the
+one-query selection and min-BER alone, with no check, for an A/B against a parent's
 checkout (phase_ab); and mma_rates, the throughput of three mma.sync
 shapes (phase_mma_rates).
 """
@@ -172,6 +177,12 @@ POPC_PER_CLK_SM = 16
 # cores, and int8 on the tensor cores
 F32_OPS_PER_S = 67e12
 INT8_MMA_OPS_PER_S = 1979e12
+# The binary (b1) AND-popcount product on the tensor cores: the int8 rate
+# x 8 (an m16n8k256 b1 product pairs 16 x 8 x 256 bits where an m16n8k32
+# s8 product pairs 16 x 8 x 32 bytes) x the s8 / b1 SM clocks a product
+# that phase mma_rates measured on an H100 (1.70 / 1.71). An AND and an
+# add a bit pair count as 2 operations, as an int8 multiply-add does.
+B1_MMA_OPS_PER_S = INT8_MMA_OPS_PER_S * 8 * 1.70 / 1.71
 RUNS = 25  # CUDA-event samples per kernel timing
 
 # the served catalogs (phase 5) and the timed requests per query form
@@ -313,7 +324,7 @@ def host_ms(torch, fn, calls: int = 200) -> float:
 
 def bound_ms(card: dict, nbytes: float, alu_ops: float = 0.0,
              popc_ops: float = 0.0, f32_ops: float = 0.0,
-             int8_mma_ops: float = 0.0) -> tuple[float, str]:
+             int8_mma_ops: float = 0.0, b1_mma_ops: float = 0.0) -> tuple[float, str]:
     """The larger of the bytes over the HBM rate and the operations over
     the card's rate for their type; the ALU, popcount, float32 and tensor
     core pipes run side by side, so the busiest sets the operations'
@@ -323,7 +334,8 @@ def bound_ms(card: dict, nbytes: float, alu_ops: float = 0.0,
     t_ops = max(alu_ops / (ALU_PER_CLK_SM * clocks),
                 popc_ops / (POPC_PER_CLK_SM * clocks),
                 f32_ops / F32_OPS_PER_S,
-                int8_mma_ops / INT8_MMA_OPS_PER_S) * 1e3
+                int8_mma_ops / INT8_MMA_OPS_PER_S,
+                b1_mma_ops / B1_MMA_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2970,10 +2982,13 @@ def _audio_clip(i: int, secs: float = AUDIO_CLIP_S, sr: int = 8000):
 
 
 def _minber_case(torch, dev, g, r: int, tb: int, lens, q_true: int, qb: int,
-                 periodic: bool = False):
+                 periodic: bool = False, dirty: bool = False):
     """(db, lens, q_pad) on the card: random u32 words (or period-4 rows
     over 4 values, where many offsets tie), zero past each row's length,
-    and a query cut from a live row with about 1 word in 32 scrambled."""
+    and a query cut from a live row with about 1 word in 32 scrambled,
+    zero past q_true. With dirty, the padding is left unmasked: random
+    words past each row's length and past q_true, which no answer may
+    depend on."""
     lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
     if periodic:
         vals = torch.tensor([0x0F0F0F0F, 0x33333333, 0x0F0F0F0F, 0x55555555],
@@ -2982,7 +2997,8 @@ def _minber_case(torch, dev, g, r: int, tb: int, lens, q_true: int, qb: int,
     else:
         db = torch.randint(0, 2**32, (r, tb), generator=g, device=dev,
                            dtype=torch.int64).to(torch.int32)
-    db.masked_fill_(torch.arange(tb, device=dev)[None, :] >= lens[:, None].long(), 0)
+    if not dirty:
+        db.masked_fill_(torch.arange(tb, device=dev)[None, :] >= lens[:, None].long(), 0)
     src = int(torch.argmax(lens).item())
     q = db[src, 3:3 + q_true].clone() if q_true <= int(lens[src]) - 3 else db[src, :q_true].clone()
     flips = torch.randint(0, 2**32, (q_true,), generator=g, device=dev, dtype=torch.int64)
@@ -2990,29 +3006,41 @@ def _minber_case(torch, dev, g, r: int, tb: int, lens, q_true: int, qb: int,
     if not periodic:  # a periodic query matches exactly at every 4th offset
         q ^= torch.where(sparse, flips, torch.zeros_like(flips)).to(torch.int32)
     q_pad = torch.zeros(qb, dtype=torch.int32, device=dev)
+    if dirty:
+        q_pad = torch.randint(-2**31, 2**31, (qb,), generator=g, device=dev, dtype=torch.int32)
     q_pad[:q_true] = q
     return db, lens, q_pad
 
 
 def _minber_bound(card: dict, lens, tb: int, q_true: int, qb: int) -> dict:
-    """min-BER's bound, the least over two formulations of the work this
+    """min-BER's bound, the least over three formulations of the work this
     run's lengths need, as #2's (_hamming_bound): q_true popcounts per
-    offset (16 per clock per SM), or an exact int8 product on the tensor
-    cores: the query's bits as +1 / -1 in 8 pieces (the N columns), each
-    window of row bits at every offset as the M rows (a Toeplitz operand),
+    offset (16 per clock per SM); an exact int8 product on the tensor
+    cores (the query's bits as +1 / -1 in 8 pieces as the N columns, each
+    window of row bits at every offset as the M rows, a Toeplitz operand,
     2 * 32 * q_true operations per offset, then the 8 pieces' sums added
-    along the diagonals and one compare per offset on the ALU. Both read
-    the rows, lengths and query once and write (ber, offset). The
-    popcount form stays beside it as bound_popc_ms."""
+    along the diagonals and one compare per offset on the ALU); or the b1
+    AND-popcount product (the query shifted a word a column as B, 2 * 32 *
+    q_true bit operations per offset, errs = S + Pq - 2 D: one popcount a
+    row word for S, and about 6 ALU operations an offset for S, errs, the
+    key and the compare). Each reads the row words that valid offsets
+    reach (words 0 .. last + q_true - 1 of a row with an offset), the
+    lengths and the live query once, and writes (ber, offset). The forms
+    stay beside it as bound_popc_ms, bound_mma_ms and bound_b1_ms."""
     import numpy as np
 
     lens = np.asarray(lens, np.int64)
-    n_off = float(np.clip(np.minimum(lens - q_true, tb - qb) + 1, 0, None).sum())
-    nbytes = len(lens) * (tb * 4 + 4 + 8) + qb * 4
+    last = np.minimum(lens - q_true, tb - qb)
+    n_off = float(np.clip(last + 1, 0, None).sum())
+    words = float(np.where(last >= 0, last + q_true, 0).sum())
+    nbytes = words * 4 + len(lens) * (4 + 8) + q_true * 4
     popc = bound_ms(card, nbytes, popc_ops=n_off * q_true)
     mma = bound_ms(card, nbytes, alu_ops=n_off * 9, int8_mma_ops=2 * 32 * n_off * q_true)
-    b, by = min(popc, mma)
-    return {"bound_ms": b, "bound_by": by, "bound_popc_ms": popc[0], "bound_mma_ms": mma[0]}
+    b1 = bound_ms(card, nbytes, alu_ops=n_off * 6, popc_ops=words,
+                  b1_mma_ops=2 * 32 * n_off * q_true)
+    b, by = min(popc, mma, b1)
+    return {"bound_ms": b, "bound_by": by, "bound_popc_ms": popc[0], "bound_mma_ms": mma[0],
+            "bound_b1_ms": b1[0]}
 
 
 def _audio_kernel(torch, dev, card: dict) -> dict:
@@ -3029,18 +3057,42 @@ def _audio_kernel(torch, dev, card: dict) -> dict:
                           dtype=torch.int32)
     short[::3] = 0
     short[7] = 512
+
+    def mixed(r: int, tb: int, seed: int):
+        """lengths 0..tb: dead rows, rows shorter than any query, full rows"""
+        lens = torch.randint(0, tb + 1, (r,), generator=torch.Generator().manual_seed(seed),
+                             dtype=torch.int32)
+        lens[::5] = 0
+        lens[1::7] = tb
+        return lens
+
+    # (name, rows, Tb, lens, q_true, Qb, period-4 rows, padding left unmasked)
     cases = (
-        ("served", MINBER_ROWS, MINBER_TB, lens_served, MINBER_Q, MINBER_QB, False),
-        ("ties", 1024, 1024, torch.full((1024,), 900, dtype=torch.int32), 40, 64, True),
-        ("short_and_dead", 512, 512, short, 64, 64, False),
-        ("q_true_1", 4096, 1024, torch.full((4096,), 1000, dtype=torch.int32), 1, 64, False),
-        ("q_true_tb", 256, 2048, torch.full((256,), 2048, dtype=torch.int32), 2048, 2048,
+        ("served", MINBER_ROWS, MINBER_TB, lens_served, MINBER_Q, MINBER_QB, False, False),
+        ("ties", 1024, 1024, torch.full((1024,), 900, dtype=torch.int32), 40, 64, True, False),
+        ("short_and_dead", 512, 512, short, 64, 64, False, False),
+        ("q_true_1", 4096, 1024, torch.full((4096,), 1000, dtype=torch.int32), 1, 64, False,
          False),
-        ("one_long_row", 1, 1 << 18, [(1 << 18) - 5], MINBER_Q, MINBER_QB, False),
+        ("q_true_tb", 256, 2048, torch.full((256,), 2048, dtype=torch.int32), 2048, 2048,
+         False, False),
+        ("one_long_row", 1, 1 << 18, [(1 << 18) - 5], MINBER_Q, MINBER_QB, False, False),
+        # the words past each row's length and past q_true random
+        ("dirty_padding", 2048, 1024, mixed(2048, 1024, 7), 100, 128, False, True),
+        ("q_true_0", 512, 1024, mixed(512, 1024, 8), 0, 64, False, True),
+        ("q_true_7", 2048, 1024, mixed(2048, 1024, 9), 7, 64, False, True),
+        ("q_true_8", 2048, 1024, mixed(2048, 1024, 10), 8, 64, False, True),
+        ("q_true_9", 2048, 1024, mixed(2048, 1024, 11), 9, 64, False, True),
+        # 201 offsets a row: no multiple of 128
+        ("offsets_201", 4096, 712, mixed(4096, 712, 12), MINBER_Q, MINBER_QB, False, True),
+        # three passes of the kernel's 512 query words
+        ("q_chunks", 1024, 2048, mixed(1024, 2048, 13), 1100, 1100, False, True),
+        # rows not 16-byte aligned: the kernel's word-by-word staging
+        ("tb_1021", 1024, 1021, mixed(1024, 1021, 14), 100, 128, False, True),
     )
     rows = []
-    for name, r, tb, lens, q_true, qb, periodic in cases:
-        db, lens_d, q_pad = _minber_case(torch, dev, g, r, tb, lens, q_true, qb, periodic)
+    for name, r, tb, lens, q_true, qb, periodic, dirty in cases:
+        db, lens_d, q_pad = _minber_case(torch, dev, g, r, tb, lens, q_true, qb, periodic,
+                                         dirty)
         bk, ok = hops._min_ber_cuda(db, lens_d, q_pad, q_true)
         torch.cuda.synchronize()
         bp, op = hops.min_ber_batch_plain(db, lens_d, q_pad, q_true)
@@ -3053,7 +3105,9 @@ def _audio_kernel(torch, dev, card: dict) -> dict:
         if name == "ties":
             check(int((bk == 0).sum()) > 0, "ties: some rows match exactly")
         if name in ("served", "one_long_row"):
-            row.update(plain_ms=time_ms(torch, lambda: hops.min_ber_batch_plain(
+            row.update(device_ms=device_ms(torch, lambda: hops._min_ber_cuda(
+                db, lens_d, q_pad, q_true)),
+                plain_ms=time_ms(torch, lambda: hops.min_ber_batch_plain(
                 db, lens_d, q_pad, q_true), runs=MINBER_PLAIN_RUNS),
                 **_minber_bound(card, lens_d.cpu().numpy(), tb, q_true, qb),
                 library_ms=None)
@@ -3345,10 +3399,13 @@ def phase_ab(torch, dev) -> dict:
     2^20 x 2 and 9,994,240 x 2 words, #2 at 2^23 x 2 words (Q = 1 and 32),
     #7 at 9,994,240 x 64 (k = 10), and the selection at one query over
     39,040 and 78,080 candidates (k = 10 and 2048), these five also by the
-    host's time per call (host_ms); on random inputs from a seed, through
-    wrappers that every checkout since the selection kernel has
+    host's time per call (host_ms); and min-BER at the served shape (2^14
+    rows x Tb 4,096, 2,311 live words, a 359-word query in Qb 512), by
+    the same three times; on random inputs from a seed, through wrappers
+    that every checkout since the selection kernel has
     (fs.hamming_topk_fused, fs.hamming_topk_fused_batched,
-    fs.cosine_int8_topk_fused, fs._select_cuda(vals, gidx, k, largest)). A
+    fs.cosine_int8_topk_fused, fs._select_cuda(vals, gidx, k, largest)),
+    and haitsma.min_ber_batch, which checkouts since the audio path have. A
     parent's checkout runs the same code when this file is copied into it:
     `python3 chip_smoke.py --phases device,build,ab` in each tree, in
     turns, in one call."""
@@ -3432,6 +3489,15 @@ def phase_ab(torch, dev) -> dict:
         for kk in (10, 2048):
             out[f"select_topk_n{n}_k{kk}"] = timed(
                 lambda: fs._select_cuda(vals, gidx, kk, True))
+    del vals, gidx
+    # min-BER at the served shape (phase 13(a)'s rows, all 2,311 words live)
+    from ucfp_tpu_torch.ops.audio import haitsma
+
+    lens = torch.full((MINBER_ROWS,), MINBER_WORDS, dtype=torch.int32)
+    db, lens_d, q_pad = _minber_case(torch, dev, g, MINBER_ROWS, MINBER_TB, lens, MINBER_Q,
+                                     MINBER_QB)
+    out[f"min_ber_batch_r{MINBER_ROWS}_tb{MINBER_TB}_q{MINBER_Q}"] = timed(
+        lambda: haitsma.min_ber_batch(db, lens_d, q_pad, MINBER_Q))
     say("ab: " + json.dumps(out))
     return out
 
@@ -3597,8 +3663,9 @@ def _findings_line(kernels: dict, served: list) -> dict:
             "replaces": "ucfp_tpu/ops/audio/haitsma.py:203",
             "launches": launches.get("min_ber_batch"),
             "max_abs_err": max(r["max_abs_err"] for r in audio["min_ber"]),
-            **{f: row[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                   "bound_popc_ms", "bound_mma_ms")},
+            **{f: row[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "bound_popc_ms", "bound_mma_ms",
+                                   "bound_b1_ms")},
             "shape": {"r": row["r"], "tb": row["tb"], "q_true": row["q_true"],
                       "qb": row["qb"]}})
     return {"kernels": kernels_line}

@@ -11,10 +11,13 @@ them as int64 holding the u32 values (torch's uint32 has no shifts).
 min_ber_batch slides a query block over every stored stream and keeps
 each row's minimum bit-error rate and its first offset. The reference
 runs it as a lax.fori_loop over offsets; on the card it is the kernel
-csrc/min_ber.cu (ucfp_min_ber), on the CPU min_ber_batch_plain: chunks of
-offsets as an unfold of the rows, XOR and the SWAR popcount of
-ops.fused_scan. The wrapper takes the plain version only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.
+csrc/min_ber.cu (ucfp_min_ber: errs = S + Pq - 2 D, D a product on the
+binary AND-popcount tensor cores against the query shifted a word a
+column, S a prefix sum; _min_ber_mma_plain mirrors that formulation for
+the tests), on the CPU min_ber_batch_plain: chunks of offsets as an
+unfold of the rows, XOR and the SWAR popcount of ops.fused_scan. The
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -41,6 +44,14 @@ N_BANDS = 33
 MAX_QUERY_WORDS = 1 << 17
 #: offsets x words per chunk of the plain version's unfold
 PLAIN_CHUNK_ELEMS = 1 << 25
+#: the kernel's layout (csrc/min_ber.cu), which _min_ber_mma_plain mirrors:
+#: 8-shift tiles a warp (MB_T), so a warp covers 16 rows x 64 shifts, and
+#: query words a pass (MB_QCHUNK)
+MMA_SHIFT_TILES = 8
+MMA_QCHUNK = 512
+#: a k-step's 8 words in the fragments' register slots: slot l (a0 / b0 of
+#: thread l) holds word 2l, slot 4 + l (a2 / b1) word 2l + 1
+MMA_SLOT_WORDS = (0, 2, 4, 6, 1, 3, 5, 7)
 
 #: kernel launches since the last reset_launch_counts(), by wrapper name
 LAUNCHES = {"min_ber_batch": 0}
@@ -220,6 +231,66 @@ def min_ber_batch_plain(db: torch.Tensor, lens: torch.Tensor, q_pad: torch.Tenso
         best_key = torch.minimum(best_key, key.amin(dim=1))
     best = torch.where(best_key == big, best, best_key)
     return _finish(best, q_true)
+
+
+def _min_ber_mma_plain(db: torch.Tensor, lens: torch.Tensor, q_pad: torch.Tensor,
+                      q_true: int):
+    """The kernel's formulation in plain PyTorch, for the tests (the card
+    never runs it): errs(o) = S(o) + Pq - 2 D(o) in int64. Offsets go in
+    warp tiles of 16 rows m x 8 * MMA_SHIFT_TILES shifts, o = o_w + 64 m +
+    8 t + n; per query pass of MMA_QCHUNK words, D's tile t is the product
+    of A[m][i] = b[o_w + 64 m + i] (row words at or past min(lens, Tb) read
+    as 0) with B_t[i][n] = q[i - 8 t - n] (zero outside the pass's live
+    words), over 8-word k-steps in the kernel's register slot order; S
+    comes from a prefix sum of the words' popcounts and Pq from the query's.
+    Each row keeps the least (errs << 32 | offset) over o <= min(lens -
+    q_true, Tb - Qb)."""
+    _check_min_ber(db, lens, q_pad, q_true)
+    r, tb = db.shape
+    n_off = tb - q_pad.shape[0] + 1
+    dev = db.device
+    rw = 8 * MMA_SHIFT_TILES  # words between A's rows
+    tiles = -(-n_off // (16 * rw))
+    lim = torch.clamp(lens.to(torch.int64), max=tb)
+    last = torch.clamp(lens.to(torch.int64) - q_true, max=n_off - 1)
+    words = torch.where(torch.arange(tb, device=dev)[None, :] < lim[:, None],
+                        db.to(torch.int64) & 0xFFFFFFFF, 0)
+    q = q_pad.to(torch.int64) & 0xFFFFFFFF
+    slots = torch.tensor(MMA_SLOT_WORDS, device=dev)
+    o = torch.arange(tiles * 16 * rw, device=dev)
+    errs = torch.zeros((r, len(o)), dtype=torch.int64, device=dev)
+    for j0 in range(0, q_true, MMA_QCHUNK):
+        qn = min(MMA_QCHUNK, q_true - j0)
+        ksteps = (qn + rw + 6) // 8
+        seg_n = (tiles * 16 - 1) * rw + 8 * ksteps
+        seg = torch.zeros((r, seg_n), dtype=torch.int64, device=dev)
+        part = words[:, j0:j0 + seg_n]
+        seg[:, :part.shape[1]] = part
+        qext = torch.zeros(8 * ksteps + 8, dtype=torch.int64, device=dev)
+        qext[7:7 + qn] = q[j0:j0 + qn]
+        i = torch.arange(8 * ksteps, device=dev)
+        # B_0[c, slot, n] = q[8c + word - n]; B_t is B_0 t k-steps earlier
+        b0 = qext[7 + i[:, None] - torch.arange(8, device=dev)[None, :]]
+        b0 = b0.view(ksteps, 8, 8)[:, slots]
+        # A[tile, m, c, slot] = b[16 rw tile + rw m + 8c + word]
+        a_idx = (16 * rw * torch.arange(tiles, device=dev)[:, None, None]
+                 + rw * torch.arange(16, device=dev)[None, :, None] + i[None, None, :])
+        a = seg[:, a_idx].view(r, tiles, 16, ksteps, 8)[..., slots]
+        d = torch.empty((r, tiles, 16, MMA_SHIFT_TILES, 8), dtype=torch.int64, device=dev)
+        for t in range(MMA_SHIFT_TILES):
+            bt = torch.zeros_like(b0)
+            bt[t:] = b0[:ksteps - t]
+            d[:, :, :, t] = fused_scan._popcount32(
+                a[..., None] & bt[None, None, None]).sum(dim=(3, 4))
+        pre = torch.nn.functional.pad(torch.cumsum(fused_scan._popcount32(seg), dim=1),
+                                      (1, 0))
+        pq = int(fused_scan._popcount32(qext).sum())
+        errs += pre[:, o + qn] - pre[:, o] + pq - 2 * d.reshape(r, -1)
+    big = torch.full((r,), 1 << 62, dtype=torch.int64, device=dev)
+    key = torch.where(o[None, :] <= last[:, None], (errs << 32) | o[None, :], big[:, None])
+    best_key = key.amin(dim=1)
+    return _finish(torch.where(best_key == big, torch.full_like(best_key, -1), best_key),
+                   q_true)
 
 
 _lib = None
