@@ -60,7 +60,7 @@ each:
                   loopback HTTP: vector, vectors x32, each with and without
                   a filter, and the exact tier; an upsert (the int8 row
                   patch), a query that finds it, a delete
-  7. qbatch       UCFP_QUERY_BATCH_MS=2 on an int8 store of 2^20 x 768
+  7. qbatch       UCFP_QUERY_BATCH_MS=2 on an int8 store of 2^19 x 768
                   vectors and 2^20 pHash rows: 32 client threads send 64
                   single vector and 64 single fingerprint_hex requests at
                   once; every answer equals the unbatched one and the
@@ -133,14 +133,36 @@ each:
                   clip at rank 1), a Haitsma upsert a query then finds,
                   a delete
 
-In phases 5-11 and 13 every served answer is checked against the plain
+ 14. text         text and hybrid search: (a) the 18 text/* digests
+                  computed on this host (the native text code built here
+                  with g++, and the Python path) equal to
+                  tests/goldens/conformance.json, and the image/semantic
+                  and audio/neural embeddings on the card at cosine >=
+                  0.999999 to the port's on the CPU; (b) an EmbeddedBackend
+                  on the card holding 2^18 - 1024 columnar rows each of
+                  MinHash (258 words), SimHash and 384-d semantic vectors,
+                  served over loopback HTTP: batch ingest of 2^14 documents
+                  of 5.6 KiB (a Zipf vocabulary) as MinHash and as SimHash,
+                  2^12 as LSH and as TLSH, 128 a request, 256 semantic
+                  text ingests; terms (and ?explain=1), the hybrid (vector
+                  + terms), vector, vectors x32, fingerprint_hex for
+                  MinHash, SimHash, LSH and TLSH (each document's own at
+                  rank 1), fingerprints_hex x32 SimHash, the semantic image
+                  and neural audio ingest routes; hits equal to the plain
+                  path (the exact MinHash / TLSH scan recomputed on the
+                  device tensors as byte XOR and a popcount table), the
+                  hybrid equal to RRF of its two legs computed apart, and
+                  the native BM25 engine equal to the Python one over the
+                  2^14 documents
+
+In phases 5-11, 13 and 14 every served answer is checked against the plain
 path on the same device tensors (or, in phases 7 and 8, the micro-batched
 answer against the unbatched one), and the launch count of every kernel
 that the phase's path runs must rise between a reset just before the
 phase's requests and a read just after (in phase 12, around the bench's
 run). Then one JSON line with every kernel's numbers (launches summed over
-phases 5-13), and last the line {"ok": true, "device": {...}}.
---phases picks a subset (default: all thirteen). One more phase, ab, is
+phases 5-14), and last the line {"ok": true, "device": {...}}.
+--phases picks a subset (default: all fourteen). One more phase, ab, is
 in no default run: the times of #13, #4 / #5, #6, #2, #7, the
 one-query selection and min-BER alone, with no check, for an A/B against a parent's
 checkout (phase_ab); and mma_rates, the throughput of three mma.sync
@@ -202,7 +224,7 @@ INT8_SERVED_ROWS = 1 << 21
 INT8_ROWS = 1 << 22
 INT8_KERNEL_ROWS = (INT8_ROWS, 1 << 23)
 # phase 7: micro-batching, on catalogs small enough to keep the run short
-QBATCH_VEC_ROWS = 1 << 20
+QBATCH_VEC_ROWS = 1 << 19  # 2^20 at first; halved to keep the whole run in time
 QBATCH_PHASH_ROWS = 1 << 20
 QBATCH_MS = 2
 QBATCH_CLIENTS = 32
@@ -1771,12 +1793,12 @@ def _bulk_load(torch, backend, n_phash, n_multi, n_vec, dim, seed, dev,
     return {"phash_s": t_phash, "multi_s": t_multi, "vectors_s": t_vec}
 
 
-def _plain_hamming_hits(torch, backend, hexes, k):
+def _plain_hamming_hits(torch, backend, hexes, k, algorithm=PHASH):
     import numpy as np
 
     from ucfp_tpu_torch.ops import fused_scan as fs
 
-    cache = backend._ham[(0, PHASH)]
+    cache = backend._ham[(0, algorithm)]
     matrix, valid = cache.device
     qm = np.stack([np.frombuffer(bytes.fromhex(h), "<u4") for h in hexes])
     q = torch.from_numpy(qm.view(np.int32)).to(matrix.device)
@@ -1786,7 +1808,7 @@ def _plain_hamming_hits(torch, backend, hexes, k):
     for dr, ir in zip(d.cpu().numpy(), i.cpu().numpy()):
         rows = sorted((cache.rids[int(x)], int(y)) for y, x in zip(dr, ir) if y < 2**30)
         rows.sort(key=lambda t: (t[1], t[0]))
-        out.append([(rid, 1.0 - dd / 64) for rid, dd in rows])
+        out.append([(rid, 1.0 - dd / (32 * cache.width)) for rid, dd in rows])
     return out
 
 
@@ -3390,6 +3412,473 @@ def phase_audio(torch, dev, card: dict) -> dict:
         _close_backend(torch, server, backend, tmp)
 
 
+# -- phase 14: text and hybrid search ---------------------------------------------
+
+TEXT_DOCS = 1 << 14
+TEXT_DOC_BYTES = 5734  # the reference bench's document (bench.py:1765-1782)
+TEXT_VOCAB = 50_000
+TEXT_ZIPF = 1.1
+TEXT_BATCH = 128  # documents a batch request
+TEXT_SIDE = 1 << 12  # LSH and TLSH documents
+TEXT_SEMANTIC = 256  # documents ingested one by one as semantic records
+TEXT_BULK = (1 << 18) - 1024  # columnar rows of each of MinHash, SimHash, semantic
+TEXT_DIM = 384
+TEXT_REPS = 20
+TEXT_INGEST_REPS = 10
+TEXT_BASE = {"minhash": 10**7, "simhash-tf": 2 * 10**7, "lsh": 3 * 10**7,
+             "tlsh": 4 * 10**7, "semantic": 5 * 10**7}
+TEXT_ALGOS = {"minhash": "minhash-h128", "simhash-tf": "simhash-b64-tf",
+              "lsh": "minhash-lsh-h128", "tlsh": "tlsh-128-1",
+              "semantic": "embedding-local"}
+
+# the conformance corpus's text inputs (tests/test_conformance.py)
+PANGRAM = "the quick brown fox jumps over the lazy dog"
+LONG_TEXT = (
+    "Pack my box with five dozen liquor jugs. How vexingly quick daft "
+    "zebras jump! The five boxing wizards jump quickly. Sphinx of black "
+    "quartz, judge my vow. " * 3
+)
+UNICODE_TEXT = "Ｈｅｌｌｏ Ｗorld — Grüße aus München! Καλημέρα κόσμε 你好"
+
+
+def _text_corpus(t) -> dict:
+    """text/* golden key -> the record the port's text modality builds."""
+    o = t.TextOpts
+    return {
+        "text/minhash/pangram": lambda: t.fingerprint_minhash(PANGRAM, 0, 1),
+        "text/minhash/long": lambda: t.fingerprint_minhash(LONG_TEXT, 0, 1),
+        "text/minhash/unicode": lambda: t.fingerprint_minhash(UNICODE_TEXT, 0, 1),
+        "text/minhash/h64-k3": lambda: t.fingerprint_minhash(LONG_TEXT, 0, 1, o(h=64, k=3)),
+        "text/minhash/grapheme": lambda: t.fingerprint_minhash(
+            PANGRAM, 0, 1, o(tokenizer="grapheme")),
+        "text/simhash-tf/long": lambda: t.fingerprint_simhash(LONG_TEXT, 0, 1),
+        "text/simhash-idf/long": lambda: t.fingerprint_simhash(
+            LONG_TEXT, 0, 1, idf={"quick": 2.0, "jump": 3.0}),
+        "text/tlsh/long": lambda: t.fingerprint_tlsh(LONG_TEXT, 0, 1),
+        "text/lsh/pangram": lambda: t.fingerprint_lsh(PANGRAM, 0, 1),
+        "text/semantic/long": lambda: t.fingerprint_semantic(LONG_TEXT, 0, 1),
+        "text/minhash/nfc-nofold": lambda: t.fingerprint_minhash(
+            UNICODE_TEXT, 0, 1, o(normalization="nfc", case_fold=False)),
+        "text/minhash/confusables": lambda: t.fingerprint_minhash(
+            "сар fits like a cap", 0, 1, o(apply_confusable=True)),
+        "text/minhash/cjk": lambda: t.fingerprint_minhash(
+            "北京大学的计算机科学课程非常好", 0, 1, o(tokenizer="cjk", k=3)),
+        "text/minhash/char-tok": lambda: t.fingerprint_minhash(
+            PANGRAM, 0, 1, o(tokenizer="char")),
+        "text/tlsh/pangram-x4": lambda: t.fingerprint_tlsh(PANGRAM * 4, 0, 1),
+        "text/minhash/uax29": lambda: t.fingerprint_minhash(
+            "don't e-mail rock 'n' roll 1,234.56 items can't-do "
+            "naïve café-au-lait O'Brien's 3.14159", 0, 1, o(k=2)),
+        "text/minhash/grapheme-emoji": lambda: t.fingerprint_minhash(
+            "family \U0001F468‍\U0001F469‍\U0001F467 flag "
+            "\U0001F1FA\U0001F1F8 thumbs \U0001F44D\U0001F3FD done",
+            0, 1, o(tokenizer="grapheme", k=3)),
+        "text/minhash/html-preprocess": lambda: t.fingerprint_minhash(
+            f"<html><body><p>{LONG_TEXT}</p></body></html>", 0, 1,
+            o(preprocess="html")),
+    }
+
+
+def _cos(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+
+
+def _text_conformance(dev) -> dict:
+    """14(a): the 18 text/* digests through the port on this host (the
+    native text code built here with g++, and the Python path), and the
+    semantic image and neural audio embeddings on the card against the
+    port on the CPU."""
+    import numpy as np
+    import xxhash
+
+    from ucfp_tpu_torch.modality import audio as amod
+    from ucfp_tpu_torch.modality import image as imod
+    from ucfp_tpu_torch.modality import text as tmod
+    from ucfp_tpu_torch.models import encoders
+    from ucfp_tpu_torch.native import load_bm25, load_textsig
+    from ucfp_tpu_torch.ops import textsig
+
+    t0 = time.perf_counter()
+    check(load_textsig() is not None, "native textsig.cpp built with g++ on this host")
+    check(load_bm25() is not None, "native bm25.cpp built with g++ on this host")
+    golden = json.loads(open(os.path.join(HERE, "tests", "goldens",
+                                          "conformance.json")).read())
+    corpus = _text_corpus(tmod)
+    check(set(corpus) == {k for k in golden if k.startswith("text/")},
+          "every text golden covered")
+    bad = [k for k, fn in corpus.items()
+           if xxhash.xxh3_64_hexdigest(fn().fingerprint) != golden[k]]
+    native = textsig._native_textsig
+    textsig._native_textsig = lambda: None
+    try:
+        bad += [k + " (python path)" for k, fn in corpus.items()
+                if xxhash.xxh3_64_hexdigest(fn().fingerprint) != golden[k]]
+    finally:
+        textsig._native_textsig = native
+    check(not bad, f"text digests on this host: {bad}")
+    t_digests = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encoders.image_params(), encoders.audio_params()  # numpy regeneration
+    t_weights = time.perf_counter() - t0
+    png = _fixed_png(10, 64, 64)
+    a = imod.fingerprint_semantic(png, 0, 1, device=dev)
+    b = imod.fingerprint_semantic(png, 0, 1, device="cpu")
+    cos_image = _cos(a.embedding, b.embedding)
+    x = _fixed_audio()
+    a = amod.fingerprint_neural(x, 8000, 0, 1, device=dev)
+    b = amod.fingerprint_neural(x, 8000, 0, 1, device="cpu")
+    ea = np.frombuffer(a.fingerprint, "<f4").reshape(-1, 128)
+    eb = np.frombuffer(b.fingerprint, "<f4").reshape(-1, 128)
+    check(ea.shape == eb.shape, "neural windows on the card == on the CPU")
+    cos_neural = min(_cos(u, v) for u, v in zip(ea, eb))
+    check(min(cos_image, cos_neural) >= 0.999999,
+          f"embeddings on the card vs the CPU: image {cos_image}, neural {cos_neural}")
+    return {"digests": len(corpus), "digest_paths": ["native", "python"],
+            "digests_s": t_digests, "weights_s": t_weights,
+            "cos_image_semantic_64x64": cos_image, "cos_audio_neural_8k_worst": cos_neural}
+
+
+def _text_docs(seed: int, n_docs: int):
+    """n_docs documents of TEXT_DOC_BYTES bytes over a vocabulary of
+    TEXT_VOCAB random lowercase words: every other word is drawn from one
+    Zipf law shared by the corpus (terms common to every document), the
+    others from the same law over the vocabulary rotated by an offset of
+    the document's own (its topic), so BM25 has frequent and rare terms
+    to rank and the documents' SimHashes differ."""
+    import operator
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    lens = rng.integers(3, 11, TEXT_VOCAB)
+    chars = rng.choice(letters, int(lens.sum()))
+    ends = np.cumsum(lens)
+    vocab = [chars[e - n:e].tobytes().decode() for e, n in zip(ends, lens)]
+    words = TEXT_DOC_BYTES // 10
+    shared = np.minimum(rng.zipf(TEXT_ZIPF, (n_docs, words)) - 1, TEXT_VOCAB - 1)
+    own = np.minimum(rng.zipf(TEXT_ZIPF, (n_docs, words)) - 1, TEXT_VOCAB - 1)
+    own = (own + rng.integers(0, TEXT_VOCAB, (n_docs, 1))) % TEXT_VOCAB
+    idx = np.stack([shared, own], axis=2).reshape(n_docs, 2 * words)
+    docs = [" ".join(operator.itemgetter(*row)(vocab))[:TEXT_DOC_BYTES] for row in idx]
+    return vocab, docs
+
+
+def _text_terms(vocab) -> list:
+    """The served terms query: a frequent, a middling and a rarer word."""
+    return [vocab[3], vocab[40], vocab[700]]
+
+
+def _bm25_pair_worker(seed: int, n_docs: int, out) -> None:
+    """The native BM25 engine against the Python one over the phase's
+    documents (the same corpus in both), search and explain bit-equal, in
+    a process of its own: both engines are single-threaded host code, so
+    it overlaps the served part of phase 14. Puts {"bad": [...], "s": t}
+    or {"error": ...} on `out`."""
+    try:
+        from ucfp_tpu_torch.index.bm25 import Bm25Engine, NativeBm25Engine
+        from ucfp_tpu_torch.native import load_bm25
+
+        t0 = time.perf_counter()
+        vocab, docs = _text_docs(seed, n_docs)
+        native, python = NativeBm25Engine(load_bm25()), Bm25Engine()
+        for i, d in enumerate(docs):
+            native.upsert_one(0, i, d)
+            python.upsert_one(0, i, d)
+        bad = []
+        for q in (_text_terms(vocab), [vocab[0]], [vocab[1], vocab[2]], vocab[100:106],
+                  [vocab[4000], vocab[40000]], ["zzzzzzzz"]):
+            if native.search(0, q, 10) != python.search(0, q, 10):
+                bad.append(("search", q))
+            a, b = native.search_explain(0, q, 10), python.search_explain(0, q, 10)
+            if ([(d, s, [(t.term, t.idf, t.tf, t.contribution) for t in th])
+                 for d, s, th in a]
+                    != [(d, s, [(t.term, t.idf, t.tf, t.contribution) for t in th])
+                        for d, s, th in b]):
+                bad.append(("explain", q))
+        out.put({"bad": bad, "docs": len(docs), "s": time.perf_counter() - t0})
+    except Exception as e:  # noqa: BLE001 - reported to the parent, which fails
+        out.put({"error": repr(e)})
+
+
+def _bulk_text(torch, backend, dev, seed: int) -> dict:
+    """TEXT_BULK MinHash rows (the 1,032-byte layout: schema 1, 128 random
+    u64 slots), TEXT_BULK random SimHash rows and TEXT_BULK random 384-d
+    semantic rows under the stand-in text model, through the columnar
+    batch upserts; data made on the card from `seed`."""
+    import numpy as np
+
+    from ucfp_tpu_torch.core import Modality
+    from ucfp_tpu_torch.models import TEXT_MODEL_ID
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    chunk = 1 << 15
+    head = np.zeros(8, np.uint8)
+    head[0] = 1
+    t0 = time.perf_counter()
+    for lo in range(0, TEXT_BULK, chunk):
+        m = min(chunk, TEXT_BULK - lo)
+        raw = torch.randint(0, 256, (m, 1024), generator=g, device=dev,
+                            dtype=torch.uint8).cpu().numpy()
+        fps = [head.tobytes() + r.tobytes() for r in raw]
+        asyncio.run(backend.upsert_fingerprint_batch(
+            0, TEXT_ALGOS["minhash"], list(range(10**9 + lo, 10**9 + lo + m)), fps,
+            modality=Modality.TEXT))
+        raw = torch.randint(0, 256, (m, 8), generator=g, device=dev,
+                            dtype=torch.uint8).cpu().numpy()
+        asyncio.run(backend.upsert_fingerprint_batch(
+            0, TEXT_ALGOS["simhash-tf"], list(range(2 * 10**9 + lo, 2 * 10**9 + lo + m)),
+            [r.tobytes() for r in raw], modality=Modality.TEXT))
+        mat = torch.randn((m, TEXT_DIM), generator=g, device=dev)
+        mat = (mat / mat.norm(dim=1, keepdim=True)).cpu().numpy()
+        asyncio.run(backend.upsert_embedding_batch(
+            0, TEXT_ALGOS["semantic"], list(range(3 * 10**9 + lo, 3 * 10**9 + lo + m)),
+            mat, modality=Modality.TEXT, model_id=TEXT_MODEL_ID))
+    return {"bulk_s": time.perf_counter() - t0}
+
+
+def _plain_exact_hamming(torch, backend, algorithm: str, fp: bytes, k: int):
+    """The exact Hamming answer for a wide fingerprint, on the backend's
+    own device tensors, another way: bytes XOR and a popcount table, a
+    stable sort (ties to the lower row), then (distance, record id)."""
+    import numpy as np
+
+    cache = backend._ham[(0, algorithm)]
+    matrix, valid = cache.device
+    words = np.zeros(cache.width * 4, np.uint8)
+    words[:len(fp)] = np.frombuffer(fp, np.uint8)
+    q = torch.from_numpy(words).to(matrix.device)
+    lut = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32,
+                       device=matrix.device)
+    m8 = matrix.contiguous().view(torch.uint8)
+    dist = torch.cat([lut[torch.bitwise_xor(m8[lo:lo + 65536], q[None, :]).long()]
+                      .sum(dim=1) for lo in range(0, m8.shape[0], 65536)])
+    dist = torch.where(valid, dist, torch.full_like(dist, 2**31 - 1))
+    order = torch.sort(dist, stable=True).indices[:min(k, cache.n)].cpu().numpy()
+    d = dist.cpu().numpy()
+    rows = sorted(((cache.rids[int(i)], int(d[i])) for i in order if d[i] < 2**30),
+                  key=lambda t: (t[1], t[0]))
+    bits = cache.width * 32
+    return [(rid, 1.0 - dd / bits) for rid, dd in rows]
+
+
+def _self_first(hits, rid) -> bool:
+    """rid is among the best-scored hits (a tie at the top may order
+    another record with the same score first)."""
+    return bool(hits) and any(h["record_id"] == rid for h in hits
+                              if h["score"] == hits[0]["score"])
+
+
+def phase_text(torch, dev) -> dict:
+    """Phase 14: (a) the text digests on this host and the float encoders
+    on the card against the CPU; (b) a text store on the card served over
+    loopback HTTP: batch ingest of MinHash, SimHash, LSH and TLSH
+    documents, semantic text ingest, BM25 terms queries (with explain),
+    the hybrid, vectors x32, fingerprint queries of each family, and the
+    semantic image and neural audio routes. Every answer is checked
+    against the plain path, its legs, or the record's own fingerprint."""
+    import numpy as np
+
+    import multiprocessing
+
+    from ucfp_tpu_torch.core import HitSource
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.matcher.rrf import rrf_with_sources
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    pair_out = ctx.Queue()
+    pair = ctx.Process(target=_bm25_pair_worker, args=(14, TEXT_DOCS, pair_out),
+                       daemon=True)
+    pair.start()
+    out = _text_conformance(dev)
+    t0 = time.perf_counter()
+    vocab, docs = _text_docs(14, TEXT_DOCS)
+    out["docs_s"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-text-")
+    backend = EmbeddedBackend(os.path.join(tmp, "db"), device=dev)
+    server = None
+    env = {"UCFP_READ_TIMEOUT_SECS": "900"}
+    saved = {name: os.environ.get(name) for name in env}
+    k = 10
+    try:
+        out.update(_bulk_text(torch, backend, dev, seed=15))
+        token = "smoke-token"
+        os.environ.update(env)
+        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        call = _Client(server.port, token)
+
+        # ---- the main path: launch counts are read over exactly this block
+        reset_counts()
+        ingest = {}
+        for algo, n in (("minhash", TEXT_DOCS), ("simhash-tf", TEXT_DOCS),
+                        ("lsh", TEXT_SIDE), ("tlsh", TEXT_SIDE)):
+            t0, times = time.perf_counter(), []
+            for lo in range(0, n, TEXT_BATCH):
+                body = "\n".join(json.dumps({"record_id": TEXT_BASE[algo] + i,
+                                             "text": docs[i]})
+                                 for i in range(lo, lo + TEXT_BATCH)).encode()
+                st, res, ms = call("POST", "/v1/ingest/text/batch/0", body,
+                                   f"algorithm={algo}&quiet=1")
+                check(st == 201 and res["count"] == TEXT_BATCH and "errors" not in res,
+                      f"{algo} batch ingest: {st} {res}")
+                times.append(ms)
+            ingest[algo] = {"docs_per_s": n / (time.perf_counter() - t0),
+                            "p50_ms_per_request": statistics.median(times)}
+        sem_ms = []
+        for i in range(TEXT_SEMANTIC):
+            st, res, ms = call("POST", f"/v1/ingest/text/0/{TEXT_BASE['semantic'] + i}",
+                               docs[i].encode(), "algorithm=semantic")
+            check(st == 201 and res["has_embedding"], f"semantic text ingest: {st}")
+            sem_ms.append(ms)
+        ingest["semantic_p50_ms"] = statistics.median(sem_ms)
+
+        lat = {}
+
+        def timed(form, body, query="", reps=TEXT_REPS):
+            res = None
+            times = []
+            for _ in range(reps + 1):  # the first call uploads / warms
+                st, res, ms = call("POST", "/v1/query", body, query)
+                check(st == 200, f"{form}: {st} {res}")
+                times.append(ms)
+            lat[form] = statistics.median(times[1:])
+            return res
+
+        base = {"tenant_id": 0, "modality": "text", "k": k}
+        terms = _text_terms(vocab)
+        res_terms = timed("terms", {**base, "terms": terms})
+        check(len(res_terms["hits"]) == k and all(h["source"] == "bm25"
+                                                 for h in res_terms["hits"]),
+              f"terms: {res_terms['hits'][:2]}")
+        res_explain = timed("terms_explain", {**base, "terms": terms}, "explain=1")
+        check([h["record_id"] for h in res_explain["hits"]]
+              == [h["record_id"] for h in res_terms["hits"]]
+              and all(h.get("term_hits") for h in res_explain["hits"]),
+              "explain: the same hits, each with its term breakdown")
+        sem = [backend.get_record(0, TEXT_BASE["semantic"] + i)["embedding"]
+               for i in range(32)]
+        vec = [float(v) for v in sem[7]]
+        res_hybrid = timed("hybrid", {**base, "terms": terms, "vector": vec})
+        res_vector = timed("vector", {**base, "vector": vec})
+        check(res_vector["hits"][0]["record_id"] == TEXT_BASE["semantic"] + 7,
+              "semantic vector of a document: its own record at rank 1")
+        res_vectors = timed("vectors", {**base, "vectors": [[float(v) for v in e]
+                                                            for e in sem]})
+        check([r["hits"][0]["record_id"] for r in res_vectors["results"]]
+              == [TEXT_BASE["semantic"] + i for i in range(32)],
+              "32 semantic vectors find their own records at rank 1")
+        fp = {algo: backend.get_record(0, TEXT_BASE[algo] + 11)["fingerprint"]
+              for algo in ("minhash", "simhash-tf", "lsh", "tlsh")}
+        res_fp = {}
+        for algo in ("minhash", "simhash-tf", "lsh", "tlsh"):
+            res_fp[algo] = timed(f"fingerprint_hex_{algo}", {
+                **base, "algorithm": algo, "fingerprint_hex": fp[algo].hex()})
+            check(_self_first(res_fp[algo]["hits"], TEXT_BASE[algo] + 11)
+                  and res_fp[algo]["hits"][0]["score"] == 1.0,
+                  f"{algo}: the document's own fingerprint at rank 1: "
+                  f"{res_fp[algo]['hits'][:2]}")
+        sim_hexes = [backend.get_record(0, TEXT_BASE["simhash-tf"] + (TEXT_DOCS // 32) * i)
+                     ["fingerprint"].hex() for i in range(32)]
+        res_sims = timed("fingerprints_hex_simhash", {
+            **base, "algorithm": "simhash-tf", "fingerprints_hex": sim_hexes})
+        for i, r in enumerate(res_sims["results"]):
+            check(_self_first(r["hits"], TEXT_BASE["simhash-tf"] + (TEXT_DOCS // 32) * i),
+                  f"SimHash batch query {i}: its own record at rank 1")
+        # the semantic image route and the neural audio route
+        png = _fixed_png(10, 256, 256)
+        clip = (_audio_clip(1, 10.0).astype(np.float32) / 32768.0).astype("<f4").tobytes()
+        for form, path, body, query in (
+                ("ingest_image_semantic", "/v1/ingest/image/0/{}/semantic", png, ""),
+                ("ingest_audio_neural", "/v1/ingest/audio/0/{}", clip,
+                 "algorithm=neural&sample_rate=8000")):
+            times = []
+            for rep in range(TEXT_INGEST_REPS + 1):
+                st, res, ms = call("POST", path.format(6 * 10**7 + rep), body, query)
+                check(st == 201 and res["has_embedding"], f"{form}: {st} {res}")
+                times.append(ms)
+            ingest[f"{form}_p50_ms"] = statistics.median(times[1:])
+        launches = read_counts()
+        # ---- end of the main path
+        check(all(launches[name] > 0 for name in ("scores_topk_fused_batched",
+                                                   "hamming_topk_fused_batched",
+                                                   "select_topk")),
+              f"every kernel of the text path launched: {launches}")
+
+        # the served answers against the plain path and the legs
+        t0 = time.perf_counter()
+        svecs = [np.asarray(e, np.float32) for e in sem]
+        check(_hit_rows(res_vector["hits"])
+              == _plain_cosine_hits(torch, backend, svecs[7:8], k)[0],
+              "vector hits == plain path")
+        check([_hit_rows(r["hits"]) for r in res_vectors["results"]]
+              == _plain_cosine_hits(torch, backend, svecs, k), "vectors hits == plain path")
+        check(_hit_rows(res_fp["simhash-tf"]["hits"]) == _plain_hamming_hits(
+            torch, backend, [fp["simhash-tf"].hex()], k, TEXT_ALGOS["simhash-tf"])[0],
+            "SimHash hits == plain path")
+        check([_hit_rows(r["hits"]) for r in res_sims["results"]]
+              == _plain_hamming_hits(torch, backend, sim_hexes, k,
+                                     TEXT_ALGOS["simhash-tf"]),
+              "SimHash batch hits == plain path")
+        for algo in ("minhash", "tlsh"):
+            check(_hit_rows(res_fp[algo]["hits"]) == _plain_exact_hamming(
+                torch, backend, TEXT_ALGOS[algo], fp[algo], k),
+                f"{algo} hits == the plain exact Hamming on the device tensors")
+        check(_hit_rows(res_terms["hits"])
+              == [(d, s) for d, s in backend._bm25.search(0, terms, k)],
+              "terms hits == the backend's BM25 engine")
+        # the hybrid: RRF over the two legs computed apart
+        vec_leg = asyncio.run(backend.knn(0, vec, k))
+        bm_leg = asyncio.run(backend.bm25(0, terms, k))
+        fused = rrf_with_sources([vec_leg, bm_leg], [HitSource.VECTOR, HitSource.BM25],
+                                 60)[:k]
+        check([(h["record_id"], h["score"], h["source"]) for h in res_hybrid["hits"]]
+              == [(h.record_id, h.score, h.source.value) for h in fused],
+              "hybrid == RRF of the vector and BM25 legs")
+        got = {h["record_id"] for h in res_hybrid["hits"]}
+        check(got & {h.record_id for h in vec_leg} and got & {h.record_id for h in bm_leg},
+              "the hybrid holds hits of both legs")
+        out["plain_checks_s"] = time.perf_counter() - t0
+
+        # BM25: the native engine against the Python engine (the worker)
+        pair_res = pair_out.get(timeout=900)
+        pair.join(60)
+        check(not pair.is_alive(), "BM25 pair process stopped")
+        check("error" not in pair_res and not pair_res["bad"]
+              and pair_res["docs"] == TEXT_DOCS,
+              f"native BM25 == Python BM25 over the {TEXT_DOCS} documents: {pair_res}")
+        out["bm25_pair_s"] = pair_res["s"]
+
+        out.update({
+            "rows": {a: backend._ham[(0, TEXT_ALGOS[a])].n
+                     for a in ("minhash", "simhash-tf", "tlsh")},
+            "vectors": backend._vec[(0, TEXT_DIM)].n,
+            "bm25": backend._bm25.stats(0),
+            "ingest": ingest,
+            "p50_ms": lat,
+            "launches": launches,
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "phase_s": time.perf_counter() - t_phase,
+        })
+        say("text: " + json.dumps(out))
+        return out
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        _close_backend(torch, server, backend, tmp)
+        if pair.is_alive():
+            pair.terminate()
+            pair.join(60)
+
+
 # -- the A/B timings -----------------------------------------------------------
 
 
@@ -3675,7 +4164,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="device,build,kernels,conformance,served,int8,qbatch,int4,"
-                           "int2,sketch,sharded,bench,audio")
+                           "int2,sketch,sharded,bench,audio,text")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -3710,6 +4199,8 @@ def main() -> int:
             served.append(phase(torch, dev))
     if "audio" in phases:
         served.append(phase_audio(torch, dev, card))
+    if "text" in phases:
+        served.append(phase_text(torch, dev))
     if kernels is not None:
         say(json.dumps(_findings_line(kernels, served)))
     say(json.dumps({"ok": True, "device": {

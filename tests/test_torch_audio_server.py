@@ -133,6 +133,8 @@ def test_audio_errors_answer_alike(tmp_path):
 
 
 def test_neural_stream_and_inspect_answer_501(tmp_path):
+    """The inspector is still a later slice's (501); the neural route and
+    the stream route are served now (201)."""
     t = EmbeddedBackend(str(tmp_path), device="cpu")
     app = build_server(ServerState(index=t, api_keys=StaticSingleKey(TOKEN)))
     h = {"authorization": f"Bearer {TOKEN}"}
@@ -147,13 +149,14 @@ def test_neural_stream_and_inspect_answer_501(tmp_path):
         return resp.status, json.loads(resp.body)
 
     try:
-        for path, q in (("/v1/ingest/audio/0/1", {"sample_rate": "8000",
-                                                   "algorithm": "neural"}),
-                        ("/v1/ingest/audio/0/1/stream", {"sample_rate": "8000"}),
-                        ("/v1/pipeline/inspect/audio", {"sample_rate": "8000"}),
+        for path, q in (("/v1/pipeline/inspect/audio", {"sample_rate": "8000"}),
                         ("/v1/pipeline/inspect/audio/0", {"sample_rate": "8000"})):
             st, res = call(path, q)
             assert st == 501 and res["error"] == "unsupported", (path, res)
+        st, res = call("/v1/ingest/audio/0/1", {"sample_rate": "8000",
+                                                "algorithm": "neural"})
+        assert st == 201 and res["algorithm"] == "audiofp-neural-v1", res
+        st, res = call("/v1/ingest/audio/0/10/stream", {"sample_rate": "8000"})
+        assert st == 201 and res["segments"] == 1, res
     finally:
         t.close()
-

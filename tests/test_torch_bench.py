@@ -38,9 +38,12 @@ TINY = {
                                   "qbatch": 4},
     "bench_audio_xrt": {"secs": 1.0, "iters": 2},
     "bench_audio_match": {"n_records": 1000, "per": 10, "queries": 3},
+    "bench_text_minhash": {"n": 3},
 }
 AUDIO_KEYS = {"audio_wang_xrt", "audio_panako_xrt", "audio_haitsma_xrt",
               "audio_haitsma_fft_xrt", "audio_match_p50_ms_1m_landmarks"}
+TEXT_KEYS = {"text_minhash_docs_per_sec", "text_minhash_ms_per_doc_5k6",
+             "text_minhash_unicode_ms_per_doc_5k6"}
 X64_KEYS = {
     "query_hamming_fused_p50_ms_10m_x64bit", "query_cosine_int8_hybrid_p50_ms_10m_x64",
     "query_cosine_int8_mxu_p50_ms_10m_x64", "query_cosine_int8_fused_p50_ms_10m_x64",
@@ -70,7 +73,8 @@ def _main(capsys):
     return capsys.readouterr().out.strip().splitlines()
 
 
-@pytest.mark.parametrize("name", sorted(set(TINY) - {"bench_cosine_int8_10m_768"}))
+@pytest.mark.parametrize("name", sorted(set(TINY) - {"bench_cosine_int8_10m_768",
+                                                     "bench_text_minhash"}))
 def test_bench_function_returns_a_finite_number(name):
     assert _positive(getattr(bench, name)(CPU, **TINY[name]))
 
@@ -113,8 +117,8 @@ def test_main_prints_the_x768_line_then_a_short_last_line(knobs, capsys):
     assert last["unit"] == "images/s"
     assert last["device"] == {"type": "cpu", "card": "cpu"}
     extra = last["extra"]
-    assert set(extra) == X64_KEYS | AUDIO_KEYS | {"multihash_images_per_sec",
-                                                  "query_cosine_p50_ms_1m_x64"}
+    assert set(extra) == X64_KEYS | AUDIO_KEYS | TEXT_KEYS | {
+        "multihash_images_per_sec", "query_cosine_p50_ms_1m_x64"}
     assert all(_positive(v) for v in extra.values())
 
 
@@ -137,7 +141,7 @@ def test_budget_skips_are_printed_as_skipped_never_as_numbers(knobs, capsys):
     last = json.loads(lines[-1])
     assert _positive(last["value"])  # the headline runs before the budget
     skipped = {**x768, **last["extra"]}
-    assert len(skipped) == 11
+    assert len(skipped) == 12
     assert all(v == "skipped: bench budget exhausted" for v in skipped.values())
 
 
@@ -159,3 +163,12 @@ def test_no_card_and_no_device_exits_nonzero():
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
     assert r.stdout == ""
+
+
+def test_text_minhash_key():
+    """The text key (the reference's _text_minhash): three finite positive
+    numbers, docs/s the inverse of ms/doc."""
+    out = bench.bench_text_minhash(CPU, **TINY["bench_text_minhash"])
+    assert set(out) == TEXT_KEYS and all(_positive(v) for v in out.values())
+    assert abs(out["text_minhash_docs_per_sec"]
+               * out["text_minhash_ms_per_doc_5k6"] - 1000.0) < 1.0

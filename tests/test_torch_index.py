@@ -197,27 +197,44 @@ def test_reference_data_dir_reopens(tmp_path, engine):
 
 
 def test_reference_dir_with_text_records_refuses_to_open(tmp_path):
+    """Text records are in the port's slice now: a reference data dir that
+    holds them opens, and its BM25 index answers as the reference's."""
     j = JBackend(str(tmp_path))
     run(j.upsert([JRecord(tenant_id=0, record_id=1, modality=JModality.TEXT,
                           algorithm="minhash-h128", fingerprint=b"\x00" * 8,
                           text="hello world")]))
     j.close()
-    with pytest.raises(UnsupportedError, match="BM25"):
-        EmbeddedBackend(str(tmp_path), device="cpu")
+    j = JBackend(str(tmp_path))
+    t = EmbeddedBackend(str(tmp_path), device="cpu")
+    try:
+        got = [(h.record_id, h.score) for h in run(t.bm25(0, ["hello"], 3))]
+        assert got == [(h.record_id, h.score) for h in run(j.bm25(0, ["hello"], 3))]
+        assert got and got[0][0] == 1
+    finally:
+        j.close()
+        t.close()
 
 
 def test_out_of_slice_writes_are_refused(tmp_path):
+    """Every algorithm is in the slice now: an LSH record and a record with
+    text are logged and indexed; a malformed record is still refused
+    before anything reaches the log."""
     t = EmbeddedBackend(str(tmp_path), device="cpu")
-    with pytest.raises(UnsupportedError, match="minhash-lsh-h128"):
-        run(t.upsert([Record(tenant_id=0, record_id=1, modality=Modality.TEXT,
-                             algorithm="minhash-lsh-h128",
-                             fingerprint=b"\x00" * 16)]))
-    with pytest.raises(UnsupportedError):
-        run(t.bm25(0, ["x"], 3))
+    run(t.upsert([Record(tenant_id=0, record_id=1, modality=Modality.TEXT,
+                         algorithm="minhash-lsh-h128", fingerprint=b"\x00" * 16),
+                  Record(tenant_id=0, record_id=2, modality=Modality.TEXT,
+                         algorithm="minhash-h128", fingerprint=b"\x00" * 8,
+                         text="hello world")]))
+    with pytest.raises(ValueError):
+        run(t.upsert([Record(tenant_id=0, record_id=3, modality=Modality.TEXT,
+                             algorithm="embedding-local", fingerprint=b"\x00" * 4,
+                             embedding=[float("nan")])]))
+    assert [h.record_id for h in run(t.bm25(0, ["hello"], 3))] == [2]
     t.close()
-    # nothing reached the log
+    # the two records reached the log, the malformed one did not
     t2 = EmbeddedBackend(str(tmp_path), device="cpu")
-    assert t2.list_records(0) == ([], 0)
+    assert t2.list_records(0)[1] == 2
+    assert [h.record_id for h in run(t2.bm25(0, ["world"], 3))] == [2]
     t2.close()
 
 

@@ -246,24 +246,32 @@ def test_same_bodies_int8(tmp_path, monkeypatch, n):
 
 
 def test_later_slice_routes_answer_501(tmp_path):
+    """What is still left for a later slice (the embedding reranker and
+    the inputs cache) answers 501; the text routes and query branches
+    that once did are served now."""
     t = EmbeddedBackend(str(tmp_path), device="cpu")
     app = build_server(ServerState(index=t, api_keys=StaticSingleKey(TOKEN)))
     h = {"authorization": f"Bearer {TOKEN}"}
 
     def call(path, body, query=None):
-        req = Request("POST", path, query or {}, h, json.dumps(body).encode())
+        raw = body if isinstance(body, bytes) else json.dumps(body).encode()
+        req = Request("POST", path, query or {}, h, raw)
         return asyncio.run(app.handle_request(req))[0].status
 
     try:
         assert call("/v1/query", {"tenant_id": 0, "modality": "text",
-                                  "terms": ["a"]}) == 501
+                                  "terms": ["a"]}, {"rerank": "embedding"}) == 501
+        for path in ("/v1/ingest/text/0/1", "/v1/ingest/image/0/1",
+                     "/v1/ingest/audio/0/1"):
+            assert call(path, b"x", {"input_id": "abc", "sample_rate": "8000"}) == 501
         assert call("/v1/query", {"tenant_id": 0, "modality": "text",
-                                  "fingerprint_hex": "00", "algorithm": "lsh"}) == 501
-        assert call("/v1/ingest/image/0/1", {}, {"algorithm": "semantic"}) == 501
+                                  "terms": ["a"]}) == 200
+        assert call("/v1/query", {"tenant_id": 0, "modality": "text",
+                                  "fingerprint_hex": "00", "algorithm": "lsh"}) == 200
         assert call("/v1/records", {"records": [{
             "tenant_id": 0, "record_id": 1, "modality": "text",
             "algorithm": "minhash-h128", "fingerprint": [0] * 8,
-            "text": "hello"}]}) == 501
+            "text": "hello"}]}) == 200
     finally:
         t.close()
 
@@ -282,6 +290,12 @@ def test_imports_without_jax_or_reference():
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     assert {"ucfp_tpu_torch.parallel", "ucfp_tpu_torch.parallel.mesh",
             "ucfp_tpu_torch.parallel.sharded_knn"} <= set(mods)
+    # the text, BM25 and encoder modules
+    assert {"ucfp_tpu_torch.models", "ucfp_tpu_torch.models.encoders",
+            "ucfp_tpu_torch.models.jaxrand", "ucfp_tpu_torch.models.hf_local",
+            "ucfp_tpu_torch.ops.textsig", "ucfp_tpu_torch.index.bm25",
+            "ucfp_tpu_torch.modality.text",
+            "ucfp_tpu_torch.modality.providers"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -300,8 +314,19 @@ def test_imports_without_jax_or_reference():
 def test_static_scan_finds_no_reference_imports():
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ucfp_tpu\b(?!_torch)"
                      r"|from\s+ucfp_tpu\b(?!_torch))", re.M)
-    offenders = [str(p) for p in _port_files() if bad.search(p.read_text())]
+    files = _port_files()
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    assert {"ucfp_tpu_torch/models/encoders.py", "ucfp_tpu_torch/models/jaxrand.py",
+            "ucfp_tpu_torch/models/hf_local.py", "ucfp_tpu_torch/index/bm25.py",
+            "ucfp_tpu_torch/ops/textsig.py", "ucfp_tpu_torch/modality/text.py",
+            "ucfp_tpu_torch/modality/providers.py"} <= names
+    offenders = [str(p) for p in files if bad.search(p.read_text())]
     assert not offenders
+    # the native text sources build from the package alone: no include
+    # reaches outside ucfp_tpu_torch/native
+    for src in ("textsig.cpp", "bm25.cpp", "wb_table.h"):
+        text = (REPO / "ucfp_tpu_torch" / "native" / src).read_text()
+        assert not re.search(r'#include\s+"(arrow|\.\.)', text), src
 
 
 def test_no_gpu_no_device_refuses_to_start(tmp_path, monkeypatch):

@@ -8,8 +8,9 @@ source is newer than its library:
     source started together, linked into one shared library with a
     plain C interface that the ops modules load with ctypes. A failed
     build raises — the device path has no fallback.
-  * the host helpers (`native/*.cpp`: WAL engine, batch image decode):
-    g++, as ucfp_tpu/native builds them. A failed host build returns
+  * the host helpers (`native/*.cpp`: WAL engine, batch image decode,
+    text signatures, BM25): g++, as ucfp_tpu/native builds them, from
+    the sources in the package alone (native/xxhash.h included). A failed host build returns
     None and the caller keeps its pure-Python path (same bytes on disk
     and on the wire, so nothing device-side is hidden by it).
 """
@@ -115,13 +116,18 @@ def kernel_library() -> ctypes.CDLL:
     return _kernels
 
 
-def build_host(src_name: str, lib_name: str) -> str | None:
-    """g++ build of native/<src_name> into _build/<lib_name>; None when
-    the toolchain is unavailable (callers keep their Python path)."""
-    src = os.path.join(PKG_DIR, "native", src_name)
+def build_host(src_name: str, lib_name: str,
+               headers: tuple[str, ...] = ()) -> str | None:
+    """g++ build of native/<src_name> into _build/<lib_name>, rebuilt
+    when the source or one of the native/ `headers` it includes is newer;
+    None when the toolchain is unavailable (callers keep their Python
+    path)."""
+    native = os.path.join(PKG_DIR, "native")
+    src = os.path.join(native, src_name)
     out = os.path.join(BUILD_DIR, lib_name)
+    deps = [src] + [os.path.join(native, h) for h in headers]
     with _lock:
-        if not _stale(out, [src]):
+        if not _stale(out, deps):
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -132,7 +138,7 @@ def build_host(src_name: str, lib_name: str) -> str | None:
             try:
                 subprocess.run(
                     ["g++", *opt, "-std=c++17", "-pthread", "-fPIC", "-shared",
-                     "-o", tmp, src],
+                     f"-I{native}", "-o", tmp, src],
                     check=True, capture_output=True, timeout=120,
                 )
                 os.replace(tmp, out)

@@ -34,7 +34,13 @@ clip nudged by the previous step's landmark count or words;
 audio_match_p50_ms_1m_landmarks is knn_audio's p50 over 10^4 stored
 records of 100 landmarks (host numpy, in an EmbeddedBackend on the device).
 
-Not ported here: the HTTP and text keys, the serving-overhead key
+The text key (the reference's name): text_minhash_docs_per_sec is the
+host MinHash fingerprint rate on the reference's 5.6 KiB bench document,
+with text_minhash_ms_per_doc_5k6 and text_minhash_unicode_ms_per_doc_5k6
+(the same size in mixed French and CJK) beside it; host code, so its
+numbers say nothing of the card.
+
+Not ported here: the HTTP keys, the serving-overhead key
 (it drives scripts/ against the reference), parity (chip_smoke.py phase 4
 holds the image digests on the card), the sharded merge model and every
 key derived from it (its constants are link speeds of the reference's
@@ -651,6 +657,30 @@ def bench_audio_match(dev, n_records: int = 10_000, per: int = 100,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def bench_text_minhash(dev, n: int = 200) -> dict:
+    """MinHash fingerprints per second of the reference bench's ~5.6 KiB
+    pangram document (canonicalize, the native UAX#29 tokenizer and the
+    fused shingle-XXH3-minhash of native/textsig.cpp: host code, `dev`
+    is unused), and the ms per document of it and of a mixed French /
+    CJK document of the same size (the full-Unicode native scanner)."""
+    from .modality.text import fingerprint_minhash
+
+    def per_doc(doc: str) -> float:
+        fingerprint_minhash(doc, 1, 1)  # warm (builds the library if stale)
+        t0 = time.perf_counter()
+        for i in range(n):
+            fingerprint_minhash(doc, 1, i)
+        return (time.perf_counter() - t0) / n
+
+    pangram = "The quick brown fox jumps over the lazy dog. "
+    per = per_doc((pangram * (5734 // len(pangram) + 1))[:5734])
+    udoc = ("Voilà l'objectif qu'il préférait — déjà vu, café, naïve, "
+            "中文混入 textes français avec des accents éèêë. " * 64)[:5600]
+    return {"text_minhash_docs_per_sec": round(1.0 / per, 1),
+            "text_minhash_ms_per_doc_5k6": round(per * 1e3, 4),
+            "text_minhash_unicode_ms_per_doc_5k6": round(per_doc(udoc) * 1e3, 4)}
+
+
 # -- the run ----------------------------------------------------------------------
 
 
@@ -672,6 +702,7 @@ def _key_list(full: bool) -> list:
         ("audio_haitsma_fft_xrt", bench_audio_xrt, {"algorithm": "haitsma_fft",
                                                     "iters": 8}),
         ("audio_match_p50_ms_1m_landmarks", bench_audio_match, {}),
+        ("text_minhash_docs_per_sec", bench_text_minhash, {}),
     ]
     if full:
         keys += [
@@ -725,9 +756,10 @@ def _run_all(dev: torch.device) -> tuple[dict, dict]:
             (x768 if "x768" in name else extra)[name] = "skipped: bench budget exhausted"
             continue
         value = fn(dev, **kwargs)
-        if isinstance(value, dict):  # the 10M x 768 family
-            x768[name] = value.pop(name)
-            x768.update(value)
+        if isinstance(value, dict):  # a key with its companion keys
+            target = x768 if "x768" in name else extra
+            target[name] = value.pop(name)
+            target.update(value)
         else:
             extra[name] = value
         _release(dev)

@@ -57,10 +57,18 @@ the card) over every stored stream at once, per shard under a mesh (the
 search is row-parallel), the shards' rows concatenated in row order.
 Replaying the WAL on open rebuilds both.
 
-Not in this slice (later ports): the LSH and BM25 indexes and
-autocompaction. Records that need one of those indexes — text (BM25) or
-the LSH algorithm — are refused on write, and a data directory that holds
-them raises UnsupportedError on open instead of dropping them.
+Text (the reference's text side, host code): every record's text goes
+into the BM25 engine (index/bm25.make_engine: the native bm25.cpp unless
+UCFP_BM25=python) in the same logical transaction as its fingerprint
+write, and a record with no text clears its document; records tagged
+minhash-lsh-h128 also go into per-tenant LSH band buckets (knn_lsh:
+union of the query's buckets, ranked by MinHash slot agreement).
+bm25_idf_map feeds SimHash-IDF. MinHash (258 words) and TLSH (18 words)
+fingerprints are wider than the fused Hamming scan's 16 words, so their
+queries take the exact scan, as in the reference. Replaying the WAL on
+open rebuilds both indexes.
+
+Not in this slice (a later port): autocompaction.
 """
 
 from __future__ import annotations
@@ -83,7 +91,7 @@ from ..core import (
     Modality,
     Record,
     RecordNotFound,
-    UnsupportedError,
+    TermHit,
     quantize_pool_frac,
 )
 from ..device import resolve_device
@@ -97,8 +105,6 @@ from .backend import IndexBackend
 LSH_ALGORITHM = "minhash-lsh-h128"
 AUDIO_LANDMARK_ALGOS = ("audiofp-wang-v1", "audiofp-panako-v1")
 HAITSMA_ALGORITHM = "audiofp-haitsma-v1"
-#: algorithms whose queries need an index this slice does not port yet
-LATER_SLICE_ALGOS = frozenset((LSH_ALGORITHM,))
 #: algorithms with an index of their own beside the packed fingerprint
 #: cache: the columnar batch paths never take them (the reference's gates)
 SPECIAL_INDEX_ALGOS = frozenset((LSH_ALGORITHM, *AUDIO_LANDMARK_ALGOS,
@@ -124,19 +130,6 @@ def _record_event(rec: Record) -> dict:
         "text": rec.text,
     }
 
-
-def _check_in_slice(algorithm: str, text, where: str) -> None:
-    if algorithm in LATER_SLICE_ALGOS:
-        raise UnsupportedError(
-            f"{where}: algorithm {algorithm!r} needs an index this build "
-            f"does not serve yet (supported: image hashes, vectors and the "
-            f"classical audio fingerprints)"
-        )
-    if text is not None:
-        raise UnsupportedError(
-            f"{where}: records with text need the BM25 index, which this "
-            f"build does not serve yet"
-        )
 
 
 @dataclass
@@ -487,8 +480,14 @@ class EmbeddedBackend(IndexBackend):
         self.data_dir = data_dir
         os.makedirs(data_dir, exist_ok=True)
         self._wal_path = os.path.join(data_dir, "ucfp.wal")
-        self._lock = threading.Lock()  # one writer
+        self._lock = threading.Lock()  # one writer, same-txn BM25 semantics
         self._records: dict[tuple[int, int], dict] = {}
+        from .bm25 import make_engine
+
+        self._bm25 = make_engine(
+            prefer_native=os.environ.get("UCFP_BM25", "native") != "python"
+        )
+        self._lsh: dict[int, dict[tuple[int, int], set[int]]] = {}  # tenant -> band buckets
         self._vec: dict[tuple[int, int], _RowCache] = {}  # (tenant, dim)
         self._ham: dict[tuple[int, str], _RowCache] = {}  # (tenant, algorithm)
         # (tenant, algorithm) -> columnar postings: wang and panako hashes
@@ -532,20 +531,14 @@ class EmbeddedBackend(IndexBackend):
             logger().warn("wal_replay_skipped_events", count=skipped)
 
     def _replay_event(self, ev: dict) -> int:
-        # a malformed event is skipped with a warning (the reference's
-        # rule); a record outside this slice stops the open instead
+        # a malformed event is skipped with a warning (the reference's rule)
         try:
             if ev.get("op") == "upsert":
-                _check_in_slice(ev.get("algorithm"), ev.get("text"),
-                                f"{self._wal_path} holds record "
-                                f"{ev.get('tenant_id')}/{ev.get('record_id')}")
                 self._apply_upsert(self._rec_from_wal(ev))
             elif ev.get("op") == "delete":
                 for rid in ev["record_ids"]:
                     self._apply_delete(ev["tenant_id"], rid)
             return 0
-        except UnsupportedError:
-            raise
         except Exception as e:  # noqa: BLE001 - replay must finish
             from ..server.logging import logger
 
@@ -682,6 +675,11 @@ class EmbeddedBackend(IndexBackend):
             # width mismatch: drop any stale row so knn_fingerprint never
             # scores this record against its previous fingerprint
             hcache.remove(rec.record_id)
+        # LSH band-bucket index for re-tagged MinHash records
+        if old is not None and old["algorithm"] == LSH_ALGORITHM:
+            self._lsh_remove(rec.tenant_id, rec.record_id, old["fingerprint"])
+        if rec.algorithm == LSH_ALGORITHM:
+            self._lsh_insert(rec.tenant_id, rec.record_id, rec.fingerprint)
         # audio landmark inverted index (wang/panako offset voting)
         if old is not None and old["algorithm"] in AUDIO_LANDMARK_ALGOS:
             self._audio_index_remove(rec.tenant_id, old["algorithm"],
@@ -701,6 +699,11 @@ class EmbeddedBackend(IndexBackend):
             sc = self._haitsma.setdefault(rec.tenant_id, _StreamCache())
             sc.upsert(rec.record_id,
                       np.frombuffer(rec.fingerprint, dtype="<u4"))
+        # BM25 in the same logical transaction (no text clears the doc);
+        # textless records that never had text skip the engine
+        if rec.text is not None or (old is not None
+                                    and old["text"] is not None):
+            self._bm25.upsert_one(rec.tenant_id, rec.record_id, rec.text)
 
     def _batch_rows_ok(self, recs: list[Record], t: int, alg: str,
                        flen: int, emb: bool) -> bool:
@@ -757,6 +760,7 @@ class EmbeddedBackend(IndexBackend):
         return True
 
     def _apply_delete(self, tenant_id: int, rid: int) -> None:
+        self._bm25.clear_one(tenant_id, rid)
         old = self._records.pop((tenant_id, rid), None)
         if old is None:
             return
@@ -772,10 +776,113 @@ class EmbeddedBackend(IndexBackend):
             h.remove(rid)
         if old["algorithm"] in AUDIO_LANDMARK_ALGOS:
             self._audio_index_remove(tenant_id, old["algorithm"], rid)
+        if old["algorithm"] == LSH_ALGORITHM:
+            self._lsh_remove(tenant_id, rid, old["fingerprint"])
         if old["algorithm"] == HAITSMA_ALGORITHM:
             sc = self._haitsma.get(tenant_id)
             if sc:
                 sc.remove(rid)
+
+    # -- LSH band buckets --------------------------------------------------------
+
+    @staticmethod
+    def _lsh_signature(fp: bytes) -> Optional[np.ndarray]:
+        if len(fp) < 8 + 8 or (len(fp) - 8) % 8 != 0:
+            return None
+        return np.frombuffer(fp, dtype="<u8", offset=8)
+
+    def _lsh_insert(self, tenant_id: int, rid: int, fp: bytes) -> None:
+        from ..ops.textsig import band_hashes
+
+        sig = self._lsh_signature(fp)
+        if sig is None or len(sig) < 120:
+            return
+        buckets = self._lsh.setdefault(tenant_id, {})
+        for j, bh in enumerate(band_hashes(sig)):
+            buckets.setdefault((j, bh), set()).add(rid)
+
+    def _lsh_remove(self, tenant_id: int, rid: int, fp: bytes) -> None:
+        from ..ops.textsig import band_hashes
+
+        sig = self._lsh_signature(fp)
+        if sig is None or len(sig) < 120:
+            return
+        buckets = self._lsh.get(tenant_id)
+        if not buckets:
+            return
+        for j, bh in enumerate(band_hashes(sig)):
+            s = buckets.get((j, bh))
+            if s is not None:
+                s.discard(rid)
+                if not s:
+                    del buckets[(j, bh)]
+
+    async def knn_lsh(self, tenant_id: int, fingerprint: bytes, k: int) -> list[Hit]:
+        """Sub-linear candidate retrieval: union the band buckets the query
+        signature lands in, then rank candidates by MinHash slot agreement
+        (estimated Jaccard), ties to the lower record id."""
+        sig = self._lsh_signature(fingerprint)
+        if sig is None or len(sig) < 120 or k == 0:
+            return []
+
+        def work():
+            from ..ops.textsig import band_hashes
+
+            with self._lock:
+                buckets = self._lsh.get(tenant_id, {})
+                cands: set[int] = set()
+                for j, bh in enumerate(band_hashes(sig)):
+                    cands |= buckets.get((j, bh), set())
+                rows = {
+                    rid: self._records.get((tenant_id, rid)) for rid in cands
+                }
+            rids_l, sigs = [], []
+            for rid, row in rows.items():
+                if row is None:
+                    continue
+                other = self._lsh_signature(row["fingerprint"])
+                if other is None or len(other) != len(sig):
+                    continue
+                rids_l.append(rid)
+                sigs.append(other)
+            if not sigs:
+                return []
+            # one vectorized slot-agreement pass over all candidates
+            mat = np.stack(sigs)  # [N, h]
+            scores = (mat == sig[None, :]).mean(axis=1)
+            rid_arr = np.asarray(rids_l, np.uint64)
+            order = np.lexsort((rid_arr, -scores))[:k]
+            return [
+                Hit(record_id=int(rid_arr[i]), score=float(scores[i]),
+                    source=HitSource.VECTOR)
+                for i in order
+            ]
+
+        return await asyncio.to_thread(work)
+
+    def bm25_idf_map(self, tenant_id: int, terms: list[str]) -> dict[str, float]:
+        """Corpus IDF for the SimHash-IDF weighting.
+
+        The caller's tokens come from the TEXT tokenizer (\\w+, keeps
+        underscores; or grapheme/cjk forms) while the BM25 corpus is
+        keyed by its own tokenizer ([^\\W_]+) — so each term is mapped
+        to its BM25 subtokens and weighted by the MAX sub-IDF (its most
+        informative component)."""
+        from .bm25 import tokenize as bm25_tokenize
+
+        sub_of: dict[str, list[str]] = {}
+        for t in terms:
+            subs = bm25_tokenize(t)
+            sub_of[t] = subs if subs else [t.lower()]
+        flat = sorted({s for subs in sub_of.values() for s in subs})
+        with self._lock:
+            base = self._bm25.idf_map(tenant_id, flat)
+        out: dict[str, float] = {}
+        for t, subs in sub_of.items():
+            vals = [base[s] for s in subs if s in base]
+            if vals:
+                out[t] = max(vals)
+        return out
 
     def _tag_code(self, value: str | None) -> int:
         """Intern algorithm/model_id strings to dense int codes for the
@@ -811,9 +918,6 @@ class EmbeddedBackend(IndexBackend):
         """Reject malformed or out-of-slice records BEFORE the WAL append.
         A uniform all-embedding batch validates as one matrix conversion,
         returned for the batched apply to reuse."""
-        for rec in records:
-            _check_in_slice(rec.algorithm, rec.text,
-                            f"record {rec.tenant_id}/{rec.record_id}")
         mat = None
         if len(records) >= 2 and all(r.embedding is not None for r in records):
             try:
@@ -2072,7 +2176,27 @@ class EmbeddedBackend(IndexBackend):
         return await asyncio.to_thread(work)
 
     async def bm25(self, tenant_id: int, terms: list[str], k: int) -> list[Hit]:
-        raise UnsupportedError("BM25 term search is not served by this build yet")
+        def work():
+            with self._lock:
+                res = self._bm25.search(tenant_id, terms, k)
+            return [
+                Hit(record_id=d, score=s, source=HitSource.BM25) for d, s in res
+            ]
+
+        return await asyncio.to_thread(work)
+
+    async def bm25_explain(
+        self, tenant_id: int, terms: list[str], k: int
+    ) -> list[tuple[Hit, list[TermHit]]]:
+        def work():
+            with self._lock:
+                res = self._bm25.search_explain(tenant_id, terms, k)
+            return [
+                (Hit(record_id=d, score=s, source=HitSource.BM25), th)
+                for d, s, th in res
+            ]
+
+        return await asyncio.to_thread(work)
 
     async def flush(self) -> None:
         wal = self._wal  # snapshot vs concurrent close()

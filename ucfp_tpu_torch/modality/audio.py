@@ -1,19 +1,22 @@
 """Audio modality pipeline: raw f32 PCM -> device DSP -> Records.
 
-Port of ucfp_tpu/modality/audio.py for the classical algorithms:
+Port of ucfp_tpu/modality/audio.py:
   * fingerprint_wang     "audiofp-wang-v1"     landmark (hash,t) u32 pairs
   * fingerprint_panako   "audiofp-panako-v1"   triplet (hash,aux) u32 pairs
   * fingerprint_haitsma  "audiofp-haitsma-v1"  u32 frame sequence (5 kHz)
   * fingerprint_audio_batch                    the three over many clips
+  * fingerprint_neural   "audiofp-neural-v1"   per-window 128-d embeddings
+  * StreamingWangSession                       chunked 8 kHz PCM -> one
+                                               Record per segment
   * detect_watermark     "audiofp-watermark-v1" WatermarkReport, no Record
 
 Input validation, decoding, resampling, the Record layouts and the
 watermark pair are host code copied from the reference (only the imports
 differ); the spectral work runs in ops.audio on the device named by
 `device` (the CUDA card unless the caller asks for the CPU). Records are
-byte-identical to the reference's. fingerprint_neural (the encoder),
-StreamingWangSession and inspect_audio belong to a later slice:
-fingerprint_neural raises UnsupportedError.
+byte-identical to the reference's. The neural path's log-mel windows
+and its stand-in MLP (models.encoders) run on the same device.
+inspect_audio belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..core import Modality, ModalityError, Record, UnsupportedError
+from ..core import Modality, ModalityError, Record
 from ..ops.audio import constellation, dsp
 from ..ops.audio import haitsma as haitsma_ops
 from ..ops.audio.constellation import PanakoConfig, WangConfig
@@ -354,14 +357,80 @@ def fingerprint_audio_batch(
 
 
 # ---------------------------------------------------------------------------
-# Neural log-mel embedder (a later slice)
+# Neural log-mel embedder (device model with fixed seeded weights)
 # ---------------------------------------------------------------------------
 
+from ..models import AUDIO_MODEL_ID as NEURAL_MODEL_ID
+from ..models.encoders import AUDIO_DIM as NEURAL_DIM
+from ..models.encoders import AUDIO_HOP as _NEURAL_HOP
+from ..models.encoders import AUDIO_MELS as _NEURAL_MELS
+from ..models.encoders import AUDIO_WIN as _NEURAL_WIN
+from ..models.encoders import audio_logmel_encode
 
-def fingerprint_neural(samples: np.ndarray, sample_rate: int, tenant_id: int,
-                       record_id: int) -> Record:
-    """The neural audio embedder and its encoders are not ported yet."""
-    raise UnsupportedError("the neural audio embedder is not served by this build yet")
+
+def _neural_embed_windows(x: np.ndarray, sr: int, device) -> np.ndarray:
+    """Log-mel windowing on the device, then the stand-in audio MLP
+    (models.encoders; the reference's ONNX log-mel embedder,
+    audio.rs:268-321)."""
+    import torch
+
+    power = dsp.stft_power(torch.as_tensor(np.asarray(x, np.float32)).to(device),
+                           1024, 256, True)
+    mel = dsp.mel_spectrogram(power, _NEURAL_MELS, 1024, sr)
+    logmel = torch.log(mel + 1e-6)
+    t = logmel.shape[0]
+    if t < _NEURAL_WIN:
+        logmel = torch.nn.functional.pad(logmel, (0, 0, 0, _NEURAL_WIN - t))
+        t = _NEURAL_WIN
+    n_win = 1 + (t - _NEURAL_WIN) // _NEURAL_HOP
+    wins = logmel.unfold(0, _NEURAL_WIN, _NEURAL_HOP)  # [n_win, MELS, WIN]
+    wins = wins[:n_win].transpose(1, 2).reshape(n_win, -1)  # [n_win, WIN*MELS]
+    return audio_logmel_encode(wins, device)
+
+
+def fingerprint_neural(
+    samples: np.ndarray, sample_rate: int, tenant_id: int, record_id: int,
+    device=None,
+) -> Record:
+    """Per-window embeddings packed into the fingerprint; the first window
+    is lifted to the embedding slot (audio.rs:268-321).
+
+    With UCFP_MODEL_DIR/audio mounted, a real HF waveform encoder
+    (wav2vec2/HuBERT/AST class) replaces the seeded stand-in — records
+    then carry the real model_id and a config_hash bound to it, exactly
+    like the text/image local-weights paths."""
+    from ..device import resolve_device
+    from ..models import hf_local
+
+    device = resolve_device(device)
+    x = _check_input(samples, sample_rate)
+    if hf_local.available("audio"):
+        emb, model_id = hf_local.audio_embed(x, sample_rate, device=device)
+        cfg = config_hash64(
+            ALGORITHM_NEURAL, model_id=model_id, dim=int(emb.shape[1]),
+            win_secs=2.0, hop_secs=1.0, sample_rate=sample_rate,
+        )
+    else:
+        emb = _neural_embed_windows(x, sample_rate, device)
+        model_id = NEURAL_MODEL_ID
+        cfg = config_hash64(
+            ALGORITHM_NEURAL, model_id=NEURAL_MODEL_ID, dim=NEURAL_DIM,
+            win=_NEURAL_WIN, hop=_NEURAL_HOP, mels=_NEURAL_MELS,
+            # the mel bank spans 0..sr/2 and frames last hop/sr seconds,
+            # so embeddings from different rates are NOT comparable —
+            # the config hash must refuse the comparison
+            sample_rate=sample_rate,
+        )
+    return Record(
+        tenant_id=tenant_id,
+        record_id=record_id,
+        modality=Modality.AUDIO,
+        algorithm=ALGORITHM_NEURAL,
+        fingerprint=np.asarray(emb).astype("<f4").tobytes(),
+        embedding=[float(v) for v in emb[0]],
+        model_id=model_id,
+        config_hash=cfg,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -691,3 +760,98 @@ def detect_watermark(
     return WatermarkReport(
         detected=detected, payload=payload if detected else None, confidence=confidence
     )
+
+
+# ---------------------------------------------------------------------------
+# Streaming Wang session (requires exactly 8 kHz, audio.rs:414-480)
+# ---------------------------------------------------------------------------
+
+
+class StreamingWangSession:
+    """Push chunked 8 kHz PCM; emits one Record per completed segment.
+
+    Segments are `segment_secs` long with a `zone + n_fft` tail carried
+    into the next segment so landmarks spanning the boundary aren't lost.
+    Segment N is stored as record_id = base record_id + N (metadata
+    "segment=N"), so callers should leave id headroom between streamed
+    records. Each segment is fingerprinted on `device`.
+
+    algorithm="panako" streams tempo-invariant triplets instead (beyond
+    the reference, whose streaming is Wang-only) — live recognition of
+    pitch/tempo-shifted audio.
+    """
+
+    def __init__(
+        self,
+        tenant_id: int,
+        record_id: int,
+        sample_rate: int,
+        cfg: WangConfig | None = None,
+        segment_secs: float = 10.0,
+        algorithm: str = "wang",
+        device=None,
+    ):
+        if sample_rate != CANONICAL_SR:
+            raise ModalityError(
+                f"streaming wang requires exactly {CANONICAL_SR} Hz, got {sample_rate}"
+            )
+        if algorithm not in ("wang", "panako"):
+            raise ModalityError(
+                f"streaming supports wang|panako, got {algorithm!r}"
+            )
+        self.algorithm = algorithm
+        self.tenant_id = tenant_id
+        self.record_id = record_id
+        self.device = device
+        if cfg is None:
+            cfg = WangConfig() if algorithm == "wang" else None
+        self.cfg = cfg
+        # panako's wider default zone needs the matching halo
+        zone_t = (cfg.target_zone_t if cfg is not None
+                  else PanakoConfig().target_zone_t)
+        self.segment = int(segment_secs * CANONICAL_SR)
+        self.halo = (zone_t + 4) * 256  # zone frames * hop
+        self._buf = np.zeros(0, np.float32)
+        self._seg_index = 0
+        self._closed = False
+        # samples at the buffer head already covered by the previous
+        # segment (the carried halo); finalize must measure NEW material
+        # beyond it, or a stream ending exactly at a segment boundary
+        # would emit a record made entirely of re-hashed old samples
+        self._carry = 0
+
+    def push(self, chunk: np.ndarray) -> list[Record]:
+        if self._closed:
+            raise ModalityError("session closed")
+        self._buf = np.concatenate([self._buf, np.asarray(chunk, np.float32)])
+        out = []
+        while len(self._buf) >= self.segment + self.halo:
+            seg = self._buf[: self.segment + self.halo]
+            out.append(self._emit(seg))
+            self._buf = self._buf[self.segment :]
+            self._carry = self.halo
+        return out
+
+    def finalize(self) -> list[Record]:
+        if self._closed:
+            raise ModalityError("session closed")
+        self._closed = True
+        fresh = len(self._buf) - self._carry
+        if fresh >= CANONICAL_SR // 2:  # at least half a second NEW audio
+            return [self._emit(self._buf)]
+        return []
+
+    def _emit(self, seg: np.ndarray) -> Record:
+        # each segment gets its own record identity (base id + index) —
+        # re-using one id would make every upsert overwrite the previous
+        # segment's landmarks
+        rid = self.record_id + self._seg_index
+        if self.algorithm == "panako":
+            rec = fingerprint_panako(seg, CANONICAL_SR, self.tenant_id, rid,
+                                     self.cfg, device=self.device)
+        else:
+            rec = fingerprint_wang(seg, CANONICAL_SR, self.tenant_id, rid,
+                                   self.cfg, device=self.device)
+        rec.metadata = f"segment={self._seg_index}".encode()
+        self._seg_index += 1
+        return rec

@@ -5,11 +5,14 @@ Port of ucfp_tpu/modality/image.py for the perceptual hashes:
   * fingerprint_single  -> 8-byte phash/dhash/ahash
   * fingerprint_batch   -> multi bundles for same-shape decoded images
 
+  * fingerprint_semantic -> 512-d embedding record ("embedding-image-local")
+
 Decode and the exact fixed-point host resize are host code, copied from
 the reference (byte-identical); everything after the luma plane runs in
 ops.imagehash on the device named by `device` (the CUDA card unless the
-caller asks for the CPU). The semantic (encoder) path belongs to a later
-slice; its algorithm tag stays here because query filters name it.
+caller asks for the CPU). The semantic path's exact-int 32x32 features
+are host numpy, and the stand-in image MLP (models.encoders) runs on the
+same device.
 """
 
 from __future__ import annotations
@@ -349,3 +352,71 @@ def fingerprint_batch(
         )
         for i in range(rgbs.shape[0])
     ]
+
+
+def semantic_features(rgb: np.ndarray) -> np.ndarray:
+    """Decoded RGB -> the encoder's [3072] input (exact-int 32x32 per
+    channel, scaled to [0, 1]). Split out so the ingest batcher can stack
+    many requests into one encoder call."""
+    chans = [
+        imagehash.np_resize(rgb[..., c].astype(np.int64), 32, 32) for c in range(3)
+    ]
+    return (np.stack(chans, -1).astype(np.float32) / 255.0).reshape(-1)
+
+
+def semantic_record(
+    emb: np.ndarray, tenant_id: int, record_id: int, model_id: str | None = None
+) -> Record:
+    """Wrap one encoder output row into the semantic Record."""
+    from ..models import IMAGE_MODEL_ID as SEMANTIC_MODEL_ID
+
+    return Record(
+        tenant_id=tenant_id,
+        record_id=record_id,
+        modality=Modality.IMAGE,
+        algorithm=ALGORITHM_SEMANTIC,
+        fingerprint=emb.astype("<f4").tobytes(),
+        embedding=[float(v) for v in emb],
+        model_id=model_id or SEMANTIC_MODEL_ID,
+        config_hash=config_hash64(
+            ALGORITHM_SEMANTIC, model_id=model_id or SEMANTIC_MODEL_ID
+        ),
+    )
+
+
+def fingerprint_semantic(
+    data: bytes,
+    tenant_id: int,
+    record_id: int,
+    pre: PreprocessConfig | None = None,
+    model_id: str | None = None,
+    device=None,
+) -> Record:
+    """CLIP-class local embedding record (embedding slot + f32 LE bytes).
+
+    Stands in for the reference's CLIP ONNX LocalProvider
+    (image.rs:210-241); the encoder lives in models.encoders.
+    """
+    from ..core import UnsupportedError
+    from ..device import resolve_device
+    from ..models import IMAGE_MODEL_ID as SEMANTIC_MODEL_ID
+    from ..models import hf_local, image_encode
+
+    device = resolve_device(device)
+    pre = pre or PreprocessConfig()
+    rgb = decode_rgb(data, pre)
+    if hf_local.available("image"):
+        # real local weights (UCFP_MODEL_DIR/image) are THE encoder
+        emb, actual = hf_local.image_embed(rgb, device=device)
+    else:
+        x = semantic_features(rgb)[None]
+        emb = image_encode(x, device)[0]
+        actual = SEMANTIC_MODEL_ID
+    if model_id is not None and model_id != actual:
+        # stamping a caller-supplied id onto another encoder's output
+        # would forge comparability across different models — exactly
+        # the cross-config comparison config_hash exists to prevent
+        raise UnsupportedError(
+            f"model {model_id!r} is not loaded (active encoder: {actual})"
+        )
+    return semantic_record(emb, tenant_id, record_id, model_id=actual)

@@ -1,5 +1,5 @@
-"""Server composition for the image, vector and audio slices (port of
-ucfp_tpu/server/app.py).
+"""Server composition for the text, image, vector and audio routes (port
+of ucfp_tpu/server/app.py).
 
   * public: /healthz
   * protected routes behind the auth middleware: bearer (or X-Api-Key)
@@ -45,14 +45,22 @@ def build_server(
     r.add("POST", "/v1/query", h.query)
     # literal-segment routes register BEFORE their parameterized shadows:
     # the router matches in order, so "batch" must not bind as a tenant id
+    r.add("POST", "/v1/ingest/text/batch/{tenant_id}", h.ingest_text_batch)
+    r.add("POST", "/v1/ingest/text/{tenant_id}/{record_id}", h.ingest_text)
+    r.add("POST", "/v1/ingest/text/{tenant_id}/{record_id}/stream",
+          h.ingest_text_stream, streaming=True)
     r.add("POST", "/v1/ingest/image/batch/{tenant_id}", h.ingest_image_batch)
     r.add("POST", "/v1/ingest/embedding/batch/{tenant_id}",
           h.ingest_embedding_batch)
     r.add("POST", "/v1/ingest/image/{tenant_id}/{record_id}", h.ingest_image)
+    r.add("POST", "/v1/ingest/image/{tenant_id}/{record_id}/semantic",
+          h.ingest_image_semantic)
+    r.add("POST", "/v1/ingest/text/{tenant_id}/{record_id}/preprocess/{kind}",
+          h.ingest_text_preprocess)
     r.add("POST", "/v1/ingest/audio/batch/{tenant_id}", h.ingest_audio_batch)
     r.add("POST", "/v1/ingest/audio/{tenant_id}/{record_id}", h.ingest_audio)
     r.add("POST", "/v1/ingest/audio/{tenant_id}/{record_id}/stream",
-          h.ingest_audio_stream)
+          h.ingest_audio_stream, streaming=True)
     r.add("POST", "/v1/ingest/audio/{tenant_id}/{record_id}/watermark",
           h.ingest_audio_watermark)
     r.add("POST", "/v1/pipeline/inspect/audio", h.inspect_audio)

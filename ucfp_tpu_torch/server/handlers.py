@@ -1,4 +1,4 @@
-"""Endpoint logic for the image + vector slice (port of ucfp_tpu/server/handlers.py).
+"""Endpoint logic (port of ucfp_tpu/server/handlers.py).
 
 Routes, each answering with the same status and the same JSON bytes as
 the reference for the same request:
@@ -7,22 +7,32 @@ the reference for the same request:
              GET  /v1/records/{tid}                list (insertion order)
              GET  /v1/records/{tid}/{rid}          describe (metadata)
              DELETE /v1/records/{tid}/{rid}
-             POST /v1/query                        vector / vectors /
+             POST /v1/query                        vector / vectors / terms
+                                                   (hybrid: vector + terms,
+                                                   ?explain=1) /
                                                    fingerprint_hex /
                                                    fingerprints_hex
-             POST /v1/ingest/image/{tid}/{rid}     ?algorithm=multi|phash|dhash|ahash
+             POST /v1/ingest/text/{tid}/{rid}      ?algorithm=minhash|simhash-tf|
+                                                   simhash-idf|lsh|tlsh|semantic
+             POST /v1/ingest/text/{tid}/{rid}/stream   NDJSON {"chunk": ...}
+             POST /v1/ingest/text/{tid}/{rid}/preprocess/{kind}
+             POST /v1/ingest/text/batch/{tid}      NDJSON {record_id, text}
+             POST /v1/ingest/image/{tid}/{rid}     ?algorithm=multi|phash|dhash|ahash|
+                                                   semantic
+             POST /v1/ingest/image/{tid}/{rid}/semantic
              POST /v1/ingest/image/batch/{tid}     framed images, one device batch
              POST /v1/ingest/embedding/batch/{tid} framed f32 rows
-             POST /v1/ingest/audio/{tid}/{rid}     ?algorithm=wang|panako|haitsma|watermark
+             POST /v1/ingest/audio/{tid}/{rid}     ?algorithm=wang|panako|haitsma|
+                                                   neural|watermark
+             POST /v1/ingest/audio/{tid}/{rid}/stream  f32/s16 PCM or multipart
              POST /v1/ingest/audio/{tid}/{rid}/watermark
              POST /v1/ingest/audio/batch/{tid}     framed PCM clips, one device
                                                    pass per equal-length group
 
-Image hashing and the audio fingerprints run on the backend's device.
-Query shapes and routes that need what this build does not serve yet
-(BM25 terms, LSH fingerprints, the embedding reranker, semantic image
-ingest, the neural audio embedder, the audio stream route, the audio
-inspector) answer 501.
+Image hashing, the audio fingerprints and the stand-in encoders run on
+the backend's device; text signatures and BM25 are host code. What this
+build does not serve yet (the embedding reranker, the inputs cache, the
+audio inspector) answers 501.
 
 tenant_guard: a key with tenant 0 is the service bearer and may touch any
 tenant; any other key must match the path/body tenant exactly or gets 403.
@@ -31,6 +41,7 @@ tenant; any other key must match the path/body tenant exactly or gets 403.
 from __future__ import annotations
 
 import asyncio
+import json
 import struct
 from typing import Optional
 
@@ -45,10 +56,11 @@ from ..core import (
     RecordNotFound,
     UcfpError,
 )
-from ..index.embedded import LATER_SLICE_ALGOS, EmbeddedBackend
+from ..index.embedded import EmbeddedBackend
 from ..matcher import Matcher
 from ..modality import audio as amod
 from ..modality import image as imod
+from ..modality import text as tmod
 from ..ops.audio.constellation import PanakoConfig, WangConfig
 from ..ops.audio.haitsma import HaitsmaConfig
 from ..ops import imagehash
@@ -62,7 +74,6 @@ MAX_QUERY_K = 10_000
 # embedding batch route row cap: 4096 x 768-d f32 rows = ~12.6 MB,
 # inside the 16 MiB body limit with framing headroom
 MAX_EMB_BATCH = 4096
-ALGORITHM_SEMANTIC_LOCAL = "embedding-local"  # text semantic tag
 
 # friendly algorithm ids -> the canonical tags records are stored under
 # (the reference's map, every modality: a query must canonicalize the
@@ -183,7 +194,7 @@ def _audio_pcm(req: Request, raw) -> np.ndarray:
     raise HttpError(400, "bad_query", "encoding must be f32 or s16")
 
 
-def _ingest_response(rec: Record) -> Response:
+def _ingest_response(rec: Record, return_embedding: bool) -> Response:
     body = {
         "tenant_id": rec.tenant_id,
         "record_id": rec.record_id,
@@ -195,6 +206,8 @@ def _ingest_response(rec: Record) -> Response:
         "fingerprint_hex": rec.fingerprint.hex(),
         "has_embedding": rec.embedding is not None,
     }
+    if return_embedding and rec.embedding is not None:
+        body["embedding"] = rec.embedding
     return Response.json(body, status=201)
 
 
@@ -209,11 +222,22 @@ class Handlers:
         from ..ingest.batcher import DeadlineBatcher
 
         async def _run_image_batch(bucket, payloads):
-            algo, h, w = bucket
+            # hash buckets carry [H, W] u8 luma payloads; the semantic
+            # bucket carries prepared [3072] encoder features
+            algo = bucket[0]
             stacked = np.stack(payloads)
-            return await asyncio.to_thread(
-                _hash_image_group, algo, stacked, h, w, len(payloads),
-                self.device)
+            n = len(payloads)
+
+            def work():
+                if algo == "semantic":
+                    from ..models import image_encode
+
+                    embs = image_encode(stacked, self.device)
+                    return [embs[i] for i in range(n)]
+                _, h, w = bucket
+                return _hash_image_group(algo, stacked, h, w, n, self.device)
+
+            return await asyncio.to_thread(work)
 
         self.image_batcher = DeadlineBatcher(_run_image_batch, max_batch=64,
                                              max_delay_ms=2.0)
@@ -407,7 +431,7 @@ class Handlers:
                 if flt["algorithm"] == "semantic":
                     alg_f = (imod.ALGORITHM_SEMANTIC
                              if modality == Modality.IMAGE
-                             else ALGORITHM_SEMANTIC_LOCAL)
+                             else tmod.ALGORITHM_SEMANTIC_LOCAL)
                 if alg_f is not None:
                     flt = {**flt, "algorithm": alg_f}
         explain = req.qp_bool("explain")
@@ -499,14 +523,17 @@ class Handlers:
                 fps = [bytes.fromhex(s) for s in fps_hex]
             except ValueError:
                 raise HttpError(400, "bad_query", "fingerprints_hex entry is not hex")
-            if algorithm in LATER_SLICE_ALGOS:
-                raise _not_served(f"{algorithm} matching")
-            # the single-fingerprint path's routing: landmark offset voting
-            # and sliding BER are other metrics than raw Hamming
+            # the single-fingerprint path's routing: LSH slot agreement,
+            # landmark offset voting and sliding BER are other metrics
+            # than raw Hamming
             if algorithm == imod.ALGORITHM_MULTI:
                 results = await self.index.knn_multihash(
                     tenant_id, fps, k, self._multihash_weights(body)
                 )
+                approx = False
+            elif algorithm == tmod.ALGORITHM_LSH:
+                results = [await self.index.knn_lsh(tenant_id, fp, k)
+                           for fp in fps]
                 approx = False
             elif algorithm in (amod.ALGORITHM_WANG, amod.ALGORITHM_PANAKO):
                 results = [
@@ -547,9 +574,9 @@ class Handlers:
                 fp = bytes.fromhex(fp_hex)
             except ValueError:
                 raise HttpError(400, "bad_query", "fingerprint_hex is not hex")
-            if algorithm in LATER_SLICE_ALGOS:
-                raise _not_served(f"{algorithm} matching")
-            if algorithm in (amod.ALGORITHM_WANG, amod.ALGORITHM_PANAKO):
+            if algorithm == tmod.ALGORITHM_LSH:
+                hits = await self.index.knn_lsh(tenant_id, fp, k)
+            elif algorithm in (amod.ALGORITHM_WANG, amod.ALGORITHM_PANAKO):
                 hits = await self.index.knn_audio(tenant_id, algorithm, fp, k)
             elif algorithm == amod.ALGORITHM_HAITSMA:
                 hits = await self.index.knn_haitsma(tenant_id, fp, k)
@@ -625,6 +652,16 @@ class Handlers:
             out["vector_rank"] = h.vector_rank
         if h.bm25_rank is not None:
             out["bm25_rank"] = h.bm25_rank
+        if h.term_hits:
+            out["term_hits"] = [
+                {
+                    "term": t.term,
+                    "idf": t.idf,
+                    "tf": t.tf,
+                    "contribution": t.contribution,
+                }
+                for t in h.term_hits[:16]
+            ]
         return out
 
     # -- ingest --------------------------------------------------------------------
@@ -647,6 +684,260 @@ class Handlers:
             )
         return v
 
+    @staticmethod
+    def _body(req: Request) -> bytes:
+        """The request body; ?input_id= (the inputs cache) is not served
+        by this build yet."""
+        if req.query.get("input_id"):
+            raise _not_served("the inputs cache (?input_id=)")
+        return req.body
+
+    # -- ingest: text ---------------------------------------------------------------
+
+    def _text_opts(self, req: Request) -> tmod.TextOpts:
+        """build_text_opts equivalent (handlers.rs:521-588)."""
+        return tmod.TextOpts(
+            k=self._in_range(req, "k", tmod.DEFAULT_K, 1, 16),
+            h=self._in_range(req, "h", tmod.DEFAULT_H, 16, 1024),
+            tokenizer=req.query.get("tokenizer", "word"),
+            normalization=req.query.get("canon_normalization", "nfkc"),
+            case_fold=req.qp_bool("canon_case_fold", True),
+            strip_bidi=req.qp_bool("canon_strip_bidi", True),
+            strip_format=req.qp_bool("canon_strip_format", True),
+            # reference spelling canon_apply_confusable (dto.rs:419-422);
+            # canon_confusable kept as the shorter alias
+            apply_confusable=req.qp_bool(
+                "canon_apply_confusable", req.qp_bool("canon_confusable", False)
+            ),
+            preprocess=req.query.get("preprocess"),
+        )
+
+    async def ingest_text(self, req: Request) -> Response:
+        tid, rid = _path_ids(req)
+        tenant_guard(_ctx(req), tid)
+        raw = self._body(req)
+        algorithm = req.query.get("algorithm", "minhash")
+        _algo_gate(algorithm)
+        opts = self._text_opts(req)
+        if opts.preprocess == "pdf":
+            try:
+                text = tmod.pdf_to_text(raw)
+            except UcfpError as e:
+                raise _err(e)
+            opts = tmod.TextOpts(**{**opts.__dict__, "preprocess": None})
+        else:
+            try:
+                text = raw.decode("utf-8")
+            except UnicodeDecodeError:
+                raise HttpError(400, "bad_utf8", "body is not valid UTF-8")
+        # hashing runs off the event loop
+        try:
+            if algorithm == "minhash":
+                rec = await asyncio.to_thread(
+                    tmod.fingerprint_minhash, text, tid, rid, opts)
+            elif algorithm == "simhash-tf":
+                rec = await asyncio.to_thread(
+                    tmod.fingerprint_simhash, text, tid, rid, opts)
+            elif algorithm == "simhash-idf":
+                # corpus IDF from the tenant's BM25 tables; an empty
+                # corpus falls back to pure TF weighting
+                terms = tmod.terms_of(text, opts)
+                idf = self.index.bm25_idf_map(tid, terms)
+                rec = await asyncio.to_thread(
+                    tmod.fingerprint_simhash, text, tid, rid, opts, idf)
+            elif algorithm == "lsh":
+                rec = await asyncio.to_thread(
+                    tmod.fingerprint_lsh, text, tid, rid, opts)
+            elif algorithm == "tlsh":
+                rec = await asyncio.to_thread(
+                    tmod.fingerprint_tlsh, text, tid, rid, opts)
+            elif algorithm == "semantic":
+                provider = req.query.get("provider", "local")
+                # the provider key rides as the api_key query param
+                # (dto.rs:396-399) or, preferred, the X-Provider-Key header
+                pkey = (req.headers.get("x-provider-key")
+                        or req.query.get("api_key"))
+                model = req.query.get("model_id")
+                rec = await asyncio.to_thread(
+                    lambda: tmod.fingerprint_semantic(
+                        text, tid, rid, provider=provider, opts=opts,
+                        provider_key=pkey, model=model, device=self.device,
+                    )
+                )
+            else:
+                raise HttpError(400, "bad_algorithm", f"unknown text algorithm {algorithm!r}")
+        except UcfpError as e:
+            raise _err(e)
+        await self.index.upsert([rec])
+        return _ingest_response(rec, req.qp_bool("return_embedding"))
+
+    @staticmethod
+    async def _body_chunks(req: Request):
+        """Async iterator over body bytes: incremental from the socket on
+        streaming routes (BodyStream in extensions), one shot otherwise."""
+        stream = req.extensions.get("body_stream")
+        if stream is None:
+            if req.body:
+                yield req.body
+            return
+        while True:
+            data = await stream.read(65536)
+            if not data:
+                return
+            yield data
+
+    async def ingest_text_stream(self, req: Request) -> Response:
+        """NDJSON lines: {"chunk": "..."} ... (handlers.rs:591-626),
+        consumed incrementally off the socket; the session accumulates
+        the text and fingerprints it once (MinHash)."""
+        tid, rid = _path_ids(req)
+        tenant_guard(_ctx(req), tid)
+        opts = self._text_opts(req)
+        session = tmod.StreamingMinHashSession(tid, rid, opts)
+        tail = b""
+
+        def push_line(line: bytes) -> None:
+            obj = json.loads(line.decode("utf-8"))
+            # a valid-JSON scalar line or a non-string chunk is a 400
+            if not isinstance(obj, dict) or not isinstance(
+                obj.get("chunk", ""), str
+            ):
+                raise HttpError(
+                    400, "bad_ndjson",
+                    'each line must be an object {"chunk": "..."}',
+                )
+            session.push(obj.get("chunk", ""))
+
+        try:
+            async for data in self._body_chunks(req):
+                tail += data
+                *lines, tail = tail.split(b"\n")
+                for line in lines:
+                    line = line.strip()
+                    if line:
+                        push_line(line)
+            line = tail.strip()
+            if line:
+                push_line(line)
+            rec = session.finalize()
+        except (UnicodeDecodeError, json.JSONDecodeError) as e:
+            raise HttpError(400, "bad_ndjson", f"invalid NDJSON stream: {e}")
+        except UcfpError as e:
+            raise _err(e)
+        await self.index.upsert([rec])
+        return _ingest_response(rec, False)
+
+    async def ingest_text_preprocess(self, req: Request) -> Response:
+        """Dedicated preprocess route (/preprocess/{kind}, kind in
+        html|markdown|pdf): ?preprocess=kind on the main text route."""
+        kind = req.params.get("kind", "")
+        if kind not in ("html", "markdown", "pdf"):
+            raise HttpError(400, "bad_path",
+                            f"unknown preprocess kind {kind!r}")
+        req.query = dict(req.query)
+        req.query["preprocess"] = kind
+        return await self.ingest_text(req)
+
+    async def ingest_text_batch(self, req: Request) -> Response:
+        """Many text documents, one request, one WAL group commit.
+
+        Body: NDJSON lines `{"record_id": N, "text": "..."}`.
+        Query: ?algorithm=minhash|simhash-tf|simhash-idf|lsh|tlsh
+        (+ the single route's tokenizer/canonicalizer tunables);
+        ?quiet=1 skips per-record hex. Per-line failures are captured
+        in `errors` (by line number) and the valid remainder ingests.
+        """
+        tid = _path_tenant(req)
+        tenant_guard(_ctx(req), tid)
+        algorithm = req.query.get("algorithm", "minhash")
+        _algo_gate(algorithm)
+        if algorithm not in ("minhash", "simhash-tf", "simhash-idf",
+                             "lsh", "tlsh"):
+            raise HttpError(
+                400, "bad_algorithm",
+                f"batch text ingest supports the hash families, "
+                f"not {algorithm!r}",
+            )
+        opts = self._text_opts(req)
+        try:
+            body = req.body.decode("utf-8")
+        except UnicodeDecodeError:
+            raise HttpError(400, "bad_utf8", "body is not valid UTF-8")
+        rows: list[tuple[int, int, str]] = []  # (line_no, rid, text)
+        errors: list[dict] = []
+        # split on "\n" ONLY: U+2028 / U+2029 / U+0085 are legal raw
+        # characters inside JSON strings, and str.splitlines() would cut
+        # a valid row in half
+        for ln_no, line in enumerate(body.split("\n"), 1):
+            if not line.strip():
+                continue
+            try:
+                obj = json.loads(line)
+                rid = int(obj["record_id"])
+                if not (0 <= rid < 2**64):
+                    raise ValueError("record_id must fit u64")
+                text = obj["text"]
+                if not isinstance(text, str):
+                    raise TypeError("text must be a string")
+            except (ValueError, KeyError, TypeError) as e:
+                errors.append({"line": ln_no, "error": f"bad row: {e}"})
+                continue
+            rows.append((ln_no, rid, text))
+        if not rows and not errors:
+            raise HttpError(400, "bad_body", "empty batch")
+        if len(rows) > 1024:
+            raise HttpError(400, "bad_body", "batch exceeds 1024 documents")
+
+        fns = {
+            "minhash": tmod.fingerprint_minhash,
+            "simhash-tf": tmod.fingerprint_simhash,
+            "lsh": tmod.fingerprint_lsh,
+            "tlsh": tmod.fingerprint_tlsh,
+        }
+
+        def work():
+            recs: list[Record] = []
+            for ln_no, rid, text in rows:
+                try:
+                    if algorithm == "simhash-idf":
+                        # per-document corpus IDF, as the single route
+                        terms = tmod.terms_of(text, opts)
+                        idf = self.index.bm25_idf_map(tid, terms)
+                        recs.append(tmod.fingerprint_simhash(
+                            text, tid, rid, opts, idf))
+                    else:
+                        recs.append(fns[algorithm](text, tid, rid, opts))
+                except UcfpError as e:
+                    errors.append({"line": ln_no, "record_id": rid,
+                                   "error": str(e)})
+            return recs
+
+        recs = await asyncio.to_thread(work)
+        if recs:
+            await self.index.upsert(recs)  # one WAL group commit
+        out: dict = {"count": len(recs)}
+        if recs:
+            out["algorithm"] = recs[0].algorithm
+        if errors:
+            out["errors"] = errors
+        if req.query.get("quiet") != "1":
+            out["records"] = [
+                {
+                    "record_id": r.record_id,
+                    "fingerprint_hex": r.fingerprint.hex(),
+                    "fingerprint_bytes": len(r.fingerprint),
+                }
+                for r in recs
+            ]
+        if not recs:
+            # every row failed: keep the error envelope fields alongside
+            # the structured per-line list
+            out["error"] = "batch_failed"
+            out["message"] = f"all {len(errors)} rows failed"
+        return Response.json(out, status=201 if recs else 400)
+
+    # -- ingest: image ---------------------------------------------------------------
+
     def _image_pre(self, req: Request) -> imod.PreprocessConfig:
         return imod.PreprocessConfig(
             max_input_bytes=self._in_range(
@@ -659,36 +950,73 @@ class Handlers:
     async def ingest_image(self, req: Request) -> Response:
         tid, rid = _path_ids(req)
         tenant_guard(_ctx(req), tid)
-        if req.query.get("input_id"):
-            raise _not_served("the inputs cache (?input_id=)")
-        raw = req.body
+        raw = self._body(req)
         algorithm = req.query.get("algorithm", "multi")
         _algo_gate(algorithm)
         pre = self._image_pre(req)
-        if algorithm == "semantic":
-            raise _not_served("semantic image ingest")
-        if algorithm not in ("multi", "phash", "dhash", "ahash"):
-            raise HttpError(
-                400, "bad_algorithm", f"unknown image algorithm {algorithm!r}"
-            )
         try:
-            # decode off the event loop
-            gray = await asyncio.to_thread(imod.decode_gray, raw, pre)
+            if algorithm in ("multi", "phash", "dhash", "ahash"):
+                # decode off the event loop
+                gray = await asyncio.to_thread(imod.decode_gray, raw, pre)
+                h, w = gray.shape
+                fp = await self.image_batcher.submit((algorithm, h, w), gray)
+                rec = Record(
+                    tenant_id=tid,
+                    record_id=rid,
+                    modality=Modality.IMAGE,
+                    algorithm=(imod.ALGORITHM_MULTI if algorithm == "multi"
+                               else imod._SINGLE_ALGOS[algorithm]),
+                    fingerprint=fp,
+                    config_hash=pre.config_hash(),
+                )
+            elif algorithm == "semantic":
+                from ..models import hf_local
+
+                rgb = await asyncio.to_thread(imod.decode_rgb, raw, pre)
+                if hf_local.available("image"):
+                    # real local weights (UCFP_MODEL_DIR/image), run on
+                    # the backend's device off the event loop
+                    emb, mid = await asyncio.to_thread(
+                        hf_local.image_embed, rgb, self.device)
+                    want = req.query.get("model_id")
+                    if want is not None and want != mid:
+                        raise HttpError(
+                            501, "unsupported",
+                            f"model {want!r} is not loaded "
+                            f"(active encoder: {mid})",
+                        )
+                    rec = imod.semantic_record(emb, tid, rid, model_id=mid)
+                else:
+                    from ..models import IMAGE_MODEL_ID
+
+                    want = req.query.get("model_id")
+                    if want is not None and want != IMAGE_MODEL_ID:
+                        # stamping a requested model's id onto the
+                        # stand-in encoder's output would forge
+                        # comparability across different models
+                        raise HttpError(
+                            501, "unsupported",
+                            f"model {want!r} is not loaded "
+                            f"(active encoder: {IMAGE_MODEL_ID})",
+                        )
+                    feats = await asyncio.to_thread(imod.semantic_features, rgb)
+                    emb = await self.image_batcher.submit(("semantic",), feats)
+                    rec = imod.semantic_record(emb, tid, rid)
+            else:
+                raise HttpError(
+                    400, "bad_algorithm", f"unknown image algorithm {algorithm!r}"
+                )
         except UcfpError as e:
             raise _err(e)
-        h, w = gray.shape
-        fp = await self.image_batcher.submit((algorithm, h, w), gray)
-        rec = Record(
-            tenant_id=tid,
-            record_id=rid,
-            modality=Modality.IMAGE,
-            algorithm=(imod.ALGORITHM_MULTI if algorithm == "multi"
-                       else imod._SINGLE_ALGOS[algorithm]),
-            fingerprint=fp,
-            config_hash=pre.config_hash(),
-        )
         await self.index.upsert([rec])
-        return _ingest_response(rec)
+        return _ingest_response(rec, req.qp_bool("return_embedding"))
+
+    async def ingest_image_semantic(self, req: Request) -> Response:
+        """Dedicated semantic image route: ?algorithm=semantic on the main
+        image route."""
+        req.query = dict(req.query)
+        req.query["algorithm"] = "semantic"
+        return await self.ingest_image(req)
 
     async def ingest_embedding_batch(self, req: Request) -> Response:
         """Many pre-computed embeddings, one request, one WAL run commit.
@@ -700,7 +1028,7 @@ class Handlers:
         Each row's stored fingerprint is its f32-LE bytes."""
         tid = _path_tenant(req)
         tenant_guard(_ctx(req), tid)
-        algorithm = req.query.get("algorithm", ALGORITHM_SEMANTIC_LOCAL)
+        algorithm = req.query.get("algorithm", tmod.ALGORITHM_SEMANTIC_LOCAL)
         _algo_gate(algorithm)
         model_id = req.query.get("model_id") or None
         cfg = req.qp_int("config_hash", 0)
@@ -991,14 +1319,13 @@ class Handlers:
     async def ingest_audio(self, req: Request) -> Response:
         tid, rid = _path_ids(req)
         tenant_guard(_ctx(req), tid)
-        if req.query.get("input_id"):
-            raise _not_served("the inputs cache (?input_id=)")
+        raw = self._body(req)
         sample_rate = req.qp_int("sample_rate", None)
         if sample_rate is None:
             raise HttpError(400, "bad_query", "sample_rate is required")
         algorithm = req.query.get("algorithm", "wang")
         _algo_gate(algorithm)
-        samples = _audio_pcm(req, req.body)
+        samples = _audio_pcm(req, raw)
         fingerprint = {"wang": amod.fingerprint_wang, "panako": amod.fingerprint_panako,
                        "haitsma": amod.fingerprint_haitsma}.get(algorithm)
         try:
@@ -1007,7 +1334,9 @@ class Handlers:
                     fingerprint, samples, sample_rate, tid, rid,
                     self._audio_cfg(req, algorithm), self.device)
             elif algorithm == "neural":
-                raise _not_served("the neural audio embedder")
+                rec = await asyncio.to_thread(
+                    amod.fingerprint_neural, samples, sample_rate, tid, rid,
+                    self.device)
             elif algorithm == "watermark":
                 # the PN key is a per-tenant secret (header preferred over
                 # the query: keys in URLs leak into logs)
@@ -1042,7 +1371,7 @@ class Handlers:
         except UcfpError as e:
             raise _err(e)
         await self.index.upsert([rec])
-        return _ingest_response(rec)
+        return _ingest_response(rec, req.qp_bool("return_embedding"))
 
     async def ingest_audio_watermark(self, req: Request) -> Response:
         """The dedicated watermark route: ?algorithm=watermark on the main
@@ -1051,8 +1380,133 @@ class Handlers:
         req.query["algorithm"] = "watermark"
         return await self.ingest_audio(req)
 
+    @staticmethod
+    async def _multipart_chunks(chunks, boundary: bytes):
+        """Incremental multipart/form-data splitter: yields the parts'
+        payload bytes in order as they arrive (each part is the next
+        chunk of the PCM stream). Headers of each part are skipped;
+        memory stays O(chunk)."""
+        delim = b"--" + boundary
+        buf = b""
+        in_part = False
+        ended = False
+        async for data in chunks:
+            if ended:
+                break
+            buf += data
+            while True:
+                if not in_part:
+                    i = buf.find(delim)
+                    if i < 0:
+                        # drop preamble junk, keep a tail that could hold
+                        # a partial delimiter
+                        buf = buf[-(len(delim) + 4):]
+                        break
+                    buf = buf[i + len(delim):]
+                    if buf.startswith(b"--"):
+                        ended = True  # closing delimiter
+                        break
+                    j = buf.find(b"\r\n\r\n")
+                    if j < 0:
+                        if len(buf) > 64 * 1024:
+                            raise HttpError(400, "bad_multipart",
+                                            "part headers too large")
+                        buf = delim + buf  # headers incomplete: re-find
+                        break
+                    buf = buf[j + 4:]
+                    in_part = True
+                else:
+                    i = buf.find(b"\r\n" + delim)
+                    if i < 0:
+                        keep = len(delim) + 4
+                        if len(buf) > keep:
+                            yield buf[:-keep]
+                            buf = buf[-keep:]
+                        break
+                    if i > 0:
+                        yield buf[:i]
+                    buf = buf[i + 2:]  # delimiter now at buffer start
+                    in_part = False
+
     async def ingest_audio_stream(self, req: Request) -> Response:
-        raise _not_served("the audio stream route")
+        """Raw f32 / s16 or multipart/form-data body run through the
+        streaming Wang (or Panako) session; each completed segment is
+        fingerprinted on the device and upserted as it completes, so a
+        long stream holds O(segment + halo) memory."""
+        tid, rid = _path_ids(req)
+        tenant_guard(_ctx(req), tid)
+        sample_rate = req.qp_int("sample_rate", None)
+        if sample_rate is None:
+            raise HttpError(400, "bad_query", "sample_rate is required")
+        enc = req.query.get("encoding", "f32")
+        if enc not in ("f32", "s16"):
+            raise HttpError(400, "bad_query", "encoding must be f32 or s16")
+        width = 4 if enc == "f32" else 2
+        meta: list[dict] = []
+
+        async def store(recs):
+            if recs:
+                await self.index.upsert(recs)
+                meta.extend(
+                    {
+                        "record_id": r.record_id,
+                        "metadata": r.metadata.decode(),
+                        "fingerprint_bytes": len(r.fingerprint),
+                    }
+                    for r in recs
+                )
+
+        algorithm = req.query.get("algorithm", "wang")
+        if algorithm not in ("wang", "panako"):
+            raise HttpError(400, "bad_algorithm",
+                            f"streaming supports wang|panako, got {algorithm!r}")
+        _algo_gate(algorithm)
+        try:
+            session = amod.StreamingWangSession(
+                tid, rid, sample_rate,
+                segment_secs=req.qp_float("segment_secs", 10.0),
+                algorithm=algorithm, device=self.device,
+            )
+            chunks = self._body_chunks(req)
+            ct = req.headers.get("content-type", "")
+            if ct.split(";")[0].strip().lower() == "multipart/form-data":
+                import re
+
+                m = re.search(r'boundary="?([^";]+)"?', ct)
+                if not m:
+                    raise HttpError(400, "bad_multipart",
+                                    "multipart body without a boundary")
+                chunks = self._multipart_chunks(chunks, m.group(1).encode())
+            tail = b""  # carry sample alignment across chunk boundaries
+            total = 0
+            async for data in chunks:
+                total += len(data)
+                tail += data
+                usable = len(tail) - (len(tail) % width)
+                if usable:
+                    if enc == "f32":
+                        samples = np.frombuffer(tail[:usable], dtype="<f4")
+                    else:
+                        samples = amod.decode_s16le(tail[:usable])
+                    tail = tail[usable:]
+                    recs = await asyncio.to_thread(session.push, samples)
+                    await store(recs)
+            if total == 0:
+                raise HttpError(400, "bad_body", "empty audio body")
+            if tail:
+                # segments are committed as they complete, so a bad tail
+                # cannot be all-or-nothing: say what was stored
+                raise HttpError(
+                    400, "bad_body",
+                    f"{enc} stream length not a multiple of {width} "
+                    f"({len(meta)} complete segment(s) were already stored)",
+                )
+            await store(await asyncio.to_thread(session.finalize))
+        except UcfpError as e:
+            raise _err(e)
+        return Response.json(
+            {"segments": len(meta), "records": meta}, status=201
+        )
 
     async def inspect_audio(self, req: Request) -> Response:
         raise _not_served("the audio inspector")
