@@ -154,15 +154,38 @@ each:
                   hybrid equal to RRF of its two legs computed apart, and
                   the native BM25 engine equal to the Python one over the
                   2^14 documents
+ 15. server       the production request path: the server state from the
+                  port's state_from_env on the card (a keys file, the
+                  usage log, the keystore and the accounts under a
+                  temporary data directory, the default token bucket)
+                  over 2^15 pHash rows and 2^15 x 768 vectors with text,
+                  served over loopback HTTP beside a server with the noop
+                  limiter and sink on the same store (the p50 of one pHash
+                  fingerprint_hex and of whoami on both, in turns): signup,
+                  login, whoami, logout; admin key create, list, revoke, a
+                  scoped key's 403 and a revoked key's 401; a 429 with
+                  Retry-After and x-ratelimit-* from a second state at
+                  UCFP_RATELIMIT_RPS=1 / _BURST=2; /v1/info,
+                  /v1/algorithms, /metrics, / and /docs; the demo route
+                  for each modality (== the goldens / the CPU); an input
+                  put, used by an ingest and each inspector, deleted; the
+                  image inspector's bundle == the image/multi goldens;
+                  inspect_audio == the CPU twin at 8 and 44.1 kHz; a
+                  reranked hybrid == a host recomputation; the NDJSON
+                  spool resuming after a stop; python -m
+                  ucfp_tpu_torch.ingest in a subprocess over 256 BMPs, 64
+                  texts and 8 clips (== the HTTP ingest's fingerprints)
+                  and the same spool drained in process, timed; one usage
+                  line per metered request and /v1/admin/usage over them
 
-In phases 5-11, 13 and 14 every served answer is checked against the plain
+In phases 5-11 and 13-15 every served answer is checked against the plain
 path on the same device tensors (or, in phases 7 and 8, the micro-batched
 answer against the unbatched one), and the launch count of every kernel
 that the phase's path runs must rise between a reset just before the
 phase's requests and a read just after (in phase 12, around the bench's
 run). Then one JSON line with every kernel's numbers (launches summed over
-phases 5-14), and last the line {"ok": true, "device": {...}}.
---phases picks a subset (default: all fourteen). One more phase, ab, is
+phases 5-15), and last the line {"ok": true, "device": {...}}.
+--phases picks a subset (default: all fifteen). One more phase, ab, is
 in no default run: the times of #13, #4 / #5, #6, #2, #7, the
 one-query selection and min-BER alone, with no check, for an A/B against a parent's
 checkout (phase_ab); and mma_rates, the throughput of three mma.sync
@@ -1715,6 +1738,22 @@ class _ServerThread:
         check(not self.thread.is_alive(), "server thread stopped")
 
 
+def _bare_state(backend, token: str):
+    """A served phase's server state: one static bearer, and the noop
+    rate limiter and usage sink passed explicitly (as the tests build the
+    reference's), so the phase's p50s time the request path without the
+    production metering that phase 15 measures."""
+    from ucfp_tpu_torch.server.app import ServerState
+    from ucfp_tpu_torch.server.auth import StaticSingleKey
+    from ucfp_tpu_torch.server.inputs_cache import InputsCache
+    from ucfp_tpu_torch.server.ratelimit import NoopRateLimiter
+    from ucfp_tpu_torch.server.usage import NoopUsageSink
+
+    return ServerState(index=backend, api_keys=StaticSingleKey(token),
+                       rate_limit=NoopRateLimiter(), usage=NoopUsageSink(),
+                       inputs=InputsCache())
+
+
 class _Client:
     def __init__(self, port: int, token: str):
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
@@ -1859,8 +1898,6 @@ def phase_served(torch, dev) -> dict:
     import numpy as np
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     headroom = 1024  # served ingests land below the loaded capacity
     n_phash, n_multi, n_vec = (PHASH_ROWS - headroom, MULTI_ROWS - headroom,
@@ -1873,8 +1910,7 @@ def phase_served(torch, dev) -> dict:
         load = _bulk_load(torch, backend, n_phash, n_multi, n_vec, DIM,
                           seed=7, dev=dev)
         token = "smoke-token"
-        server = _ServerThread(ServerState(index=backend,
-                                           api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         call = _Client(server.port, token)
         torch.cuda.reset_peak_memory_stats()
 
@@ -2126,8 +2162,6 @@ def phase_int8(torch, dev) -> dict:
     query that finds it and a delete."""
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     n = INT8_SERVED_ROWS - 1024  # served upserts land below the loaded capacity
     tmp = tempfile.mkdtemp(prefix="ucfp-smoke-int8-")
@@ -2136,8 +2170,7 @@ def phase_int8(torch, dev) -> dict:
     try:
         load_s, vcache, vecs, want, model = _vector_store(torch, backend, n, 8, 12)
         token = "smoke-token"
-        server = _ServerThread(ServerState(index=backend,
-                                           api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         call = _Client(server.port, token)
         base = {"tenant_id": 0, "modality": "image", "k": 10}
         torch.cuda.reset_peak_memory_stats()
@@ -2198,8 +2231,6 @@ def phase_qbatch(torch, dev) -> dict:
     import numpy as np
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     n_vec, n_ph = QBATCH_VEC_ROWS - 1024, QBATCH_PHASH_ROWS - 1024
     k = 10
@@ -2217,8 +2248,7 @@ def phase_qbatch(torch, dev) -> dict:
         load = _bulk_load(torch, backend, n_ph, 0, n_vec, DIM, seed=9, dev=dev,
                           vec_fp_bytes=8)
         token = "smoke-token"
-        server = _ServerThread(ServerState(index=backend,
-                                           api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         rng = np.random.default_rng(13)
         vcache, hcache = backend._vec[(0, DIM)], backend._ham[(0, PHASH)]
         base = {"tenant_id": 0, "modality": "image", "k": k}
@@ -2299,8 +2329,6 @@ def phase_int4(torch, dev) -> dict:
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
     from ucfp_tpu_torch.ops import knn
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     n = INT4_ROWS - 1024  # served upserts land below the loaded capacity
     tmp = tempfile.mkdtemp(prefix="ucfp-smoke-int4-")
@@ -2317,8 +2345,7 @@ def phase_int4(torch, dev) -> dict:
         load_s, vcache, vecs, want, model = _vector_store(
             torch, backend, n, 10, 14, count=32 + INT4_QBATCH_REQUESTS)
         token = "smoke-token"
-        server = _ServerThread(ServerState(index=backend,
-                                           api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         call = _Client(server.port, token)
         clients.append(call)
         base = {"tenant_id": 0, "modality": "image", "k": 10}
@@ -2433,8 +2460,6 @@ def phase_int2(torch, dev) -> dict:
     patch), a query that finds it and a delete."""
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
     from ucfp_tpu_torch.ops import knn
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     n = INT2_ROWS - 1024  # served upserts land below the loaded capacity
     tmp = tempfile.mkdtemp(prefix="ucfp-smoke-int2-")
@@ -2443,7 +2468,7 @@ def phase_int2(torch, dev) -> dict:
     try:
         load_s, vcache, vecs, want, model = _vector_store(torch, backend, n, 11, 15)
         token = "smoke-token"
-        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         call = _Client(server.port, token)
         base = {"tenant_id": 0, "modality": "image", "k": 10}
         torch.cuda.reset_peak_memory_stats()
@@ -2520,8 +2545,6 @@ def phase_sketch(torch, dev) -> dict:
     load (PERF.md)."""
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
     from ucfp_tpu_torch.ops import knn
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     n = SKETCH_ROWS - 1024
     tmp = tempfile.mkdtemp(prefix="ucfp-smoke-sketch-")
@@ -2530,7 +2553,7 @@ def phase_sketch(torch, dev) -> dict:
     try:
         load_s, vcache, vecs, want, model = _vector_store(torch, backend, n, 12, 17)
         token = "smoke-token"
-        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         call = _Client(server.port, token)
         base = {"tenant_id": 0, "modality": "image", "k": 10}
         fast = {**base, "recall_tier": "fast"}
@@ -2774,8 +2797,6 @@ def phase_sharded(torch, dev, n_served: int = SHARD_SERVED_ROWS) -> dict:
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
     from ucfp_tpu_torch.parallel import mesh as pm
     from ucfp_tpu_torch.parallel.sharded_knn import ShardedTensor
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     t_phase = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(4321)
@@ -2817,7 +2838,7 @@ def phase_sharded(torch, dev, n_served: int = SHARD_SERVED_ROWS) -> dict:
         fpicks = [int(x) for x in rng.integers(0, n, 32)]
         hexes = [backend.get_record(0, hcache.rids[p])["fingerprint"].hex() for p in fpicks]
         token = "smoke-token"
-        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         call = _Client(server.port, token)
         base = {"tenant_id": 0, "modality": "image", "k": k}
         torch.cuda.reset_peak_memory_stats()
@@ -3248,8 +3269,6 @@ def phase_audio(torch, dev, card: dict) -> dict:
 
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
     from ucfp_tpu_torch.modality import audio as amod
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     t_phase = time.perf_counter()
     out = _audio_kernel(torch, dev, card)
@@ -3265,7 +3284,7 @@ def phase_audio(torch, dev, card: dict) -> dict:
         load = _audio_load(backend, seed=13)
         token = "smoke-token"
         os.environ.update(env)
-        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         call = _Client(server.port, token)
         clips = [_audio_clip(i) for i in range(AUDIO_BATCH + 2)]
         base = {"wang": 1_000_000, "panako": 2_000_000, "haitsma": 3_000_000}
@@ -3687,8 +3706,6 @@ def phase_text(torch, dev) -> dict:
     from ucfp_tpu_torch.core import HitSource
     from ucfp_tpu_torch.index.embedded import EmbeddedBackend
     from ucfp_tpu_torch.matcher.rrf import rrf_with_sources
-    from ucfp_tpu_torch.server.app import ServerState
-    from ucfp_tpu_torch.server.auth import StaticSingleKey
 
     t_phase = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
@@ -3710,7 +3727,7 @@ def phase_text(torch, dev) -> dict:
         out.update(_bulk_text(torch, backend, dev, seed=15))
         token = "smoke-token"
         os.environ.update(env)
-        server = _ServerThread(ServerState(index=backend, api_keys=StaticSingleKey(token)))
+        server = _ServerThread(_bare_state(backend, token))
         call = _Client(server.port, token)
 
         # ---- the main path: launch counts are read over exactly this block
@@ -3877,6 +3894,469 @@ def phase_text(torch, dev) -> dict:
         if pair.is_alive():
             pair.terminate()
             pair.join(60)
+
+
+# -- phase 15 ----------------------------------------------------------------
+
+# the production store: at the fused scans' 32,768-row floor, so the
+# pHash and vector queries serve on #2, #1 and the selection
+SERVER_ROWS = 1 << 15
+SERVER_REPS = 20  # timed request pairs per form in the middleware's A/B
+SPOOL_IMAGES, SPOOL_TEXTS, SPOOL_CLIPS = 256, 64, 8
+SPOOL_CLIP_S = 10.0
+SERVER_ENV = ("UCFP_KEY_LOOKUP_URL", "UCFP_KEYS_FILE", "UCFP_TOKEN",
+              "UCFP_RATELIMIT_URL", "UCFP_RATELIMIT_RPS", "UCFP_RATELIMIT_BURST",
+              "UCFP_USAGE_WEBHOOK_URL", "UCFP_USAGE_LOG_PATH", "UCFP_DEMO_CHALLENGE_URL",
+              "UCFP_AUTH_IP_RPM", "UCFP_DEMO_RPM", "UCFP_DISABLED_ALGORITHMS")
+
+
+@contextlib.contextmanager
+def _environ(**kv):
+    """os.environ with SERVER_ENV unset and `kv` set, restored after."""
+    saved = dict(os.environ)
+    for k in SERVER_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+class _Http:
+    """One keep-alive loopback connection: any method, token, headers
+    -> (status, headers, JSON or bytes, ms). Counts the requests that the
+    production middleware meters (`metered`)."""
+
+    PUBLIC = ("/", "/docs", "/healthz", "/v1/info", "/v1/algorithms", "/metrics",
+              "/v1/demo/fingerprint")
+
+    def __init__(self, port: int):
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+        self.metered = 0
+
+    def __call__(self, method, path, body=b"", query=None, token=None, headers=None,
+                 metered=None):
+        from urllib.parse import urlencode
+
+        if isinstance(body, (dict, list)):
+            body = json.dumps(body).encode()
+        h = {"content-length": str(len(body)), **(headers or {})}
+        if token is not None:
+            h["authorization"] = f"Bearer {token}"
+        url = path + (f"?{urlencode(query)}" if query else "")
+        t0 = time.perf_counter()
+        self.conn.request(method, url, body=body, headers=h)
+        resp = self.conn.getresponse()
+        data = resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+        out = (json.loads(data) if data and hdrs.get("content-type", "").startswith(
+            "application/json") else data)
+        if metered is None:
+            metered = not (path in self.PUBLIC or path.startswith("/docs/")
+                           or (method == "POST" and path.startswith("/v1/auth/")))
+        self.metered += bool(metered)
+        return resp.status, hdrs, out, ms
+
+
+def _spool_files(spool: str) -> dict:
+    """SPOOL_IMAGES random BMPs of two shapes, SPOOL_TEXTS documents of
+    the phase-14 corpus and SPOOL_CLIPS 8 kHz f32 clips, named
+    1_{record}.{ext} -> {record_id: (kind, bytes)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    files = {}
+    for i in range(SPOOL_IMAGES):
+        h, w = (128, 128) if i % 2 else (96, 64)
+        files[1000 + i] = ("bmp", _bmp(rng.integers(0, 256, (h, w, 3), np.uint8)))
+    _, docs = _text_docs(15, SPOOL_TEXTS)
+    for i, doc in enumerate(docs):
+        files[2000 + i] = ("txt", doc.encode())
+    for i in range(SPOOL_CLIPS):
+        x = _audio_clip(i, SPOOL_CLIP_S).astype(np.float32) / np.float32(32768.0)
+        files[3000 + i] = ("f32", x.astype("<f4").tobytes())
+    os.makedirs(spool, exist_ok=True)
+    for rid, (ext, data) in files.items():
+        with open(os.path.join(spool, f"1_{rid}.{ext}"), "wb") as f:
+            f.write(data)
+    return files
+
+
+def phase_server(torch, dev) -> dict:
+    """Phase 15: the production request path. The state comes from the
+    port's state_from_env on the card (a keys file, the usage log, the
+    keystore and the accounts under a temporary data directory; the
+    default token bucket), over a store of SERVER_ROWS pHash rows and
+    SERVER_ROWS x 768 vectors with text. Drives accounts, admin keys,
+    scopes, a 429, usage lines, the public routes, the demo route, the
+    inputs cache, the three inspectors, a reranked hybrid query, and pull
+    ingest (the CLI in a subprocess on the card, and the NDJSON form
+    resuming after a stop)."""
+    import shutil
+
+    import numpy as np
+    import xxhash
+
+    from ucfp_tpu_torch.core import Modality, Record
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.ingest.filesource import (
+        NdjsonIngestSource,
+        SpoolDirectoryIngestSource,
+    )
+    from ucfp_tpu_torch.ingest.source import run_ingest_loop
+    from ucfp_tpu_torch.modality import audio as amod
+    from ucfp_tpu_torch.modality import text as tmod
+    from ucfp_tpu_torch.server import app as sapp
+
+    t_phase = time.perf_counter()
+    golden = json.loads(open(os.path.join(HERE, "tests", "goldens",
+                                          "conformance.json")).read())
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-server-")
+    svc, t2 = "smoke-service", "smoke-tenant-2"
+    keys = os.path.join(tmp, "keys.toml")
+    with open(keys, "w") as f:
+        f.write(f'[keys.service]\ntoken = "{svc}"\ntenant_id = 0\n\n'
+                f'[keys.tenant2]\ntoken = "{t2}"\ntenant_id = 2\n')
+    usage_log = os.path.join(tmp, "usage.ndjson")
+    with _environ():
+        state = sapp.state_from_env(data_dir=os.path.join(tmp, "db"), keys_file=keys,
+                                    usage_log=usage_log, device=dev)
+    backend = state.index
+    servers, others = [], []
+    try:
+        check([type(lk).__name__ for lk in state.api_keys.lookups]
+              == ["StaticMapKey", "PersistentKeyStore"]
+              and type(state.rate_limit).__name__ == "InMemoryTokenBucket"
+              and (state.rate_limit.rate, state.rate_limit.burst) == (100.0, 200.0)
+              and type(state.usage).__name__ == "LogUsageSink",
+              "state_from_env: keys file + keystore, the 100 / 200 bucket, the log sink")
+        # the store: pHash rows, and 768-d vectors with text (BM25 too)
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(15)
+        raw = torch.randint(0, 256, (SERVER_ROWS, 8), generator=g, device=dev,
+                            dtype=torch.uint8).cpu().numpy()
+        asyncio.run(backend.upsert_fingerprint_batch(
+            0, PHASH, list(range(SERVER_ROWS)), [r.tobytes() for r in raw]))
+        vocab, _ = _text_docs(16, 1)
+        vocab = np.asarray(vocab)
+        rng = np.random.default_rng(15)
+        words = vocab[np.minimum(rng.zipf(TEXT_ZIPF, (SERVER_ROWS, 12)) - 1, len(vocab) - 1)]
+        texts = [" ".join(r) for r in words.tolist()]
+        mat = torch.randn((SERVER_ROWS, DIM), generator=g, device=dev).cpu().numpy()
+        base = 4 * 10**9
+        for lo in range(0, SERVER_ROWS, 4096):
+            asyncio.run(backend.upsert([
+                Record(tenant_id=0, record_id=base + i, modality=Modality.TEXT,
+                       algorithm="embedding-local", fingerprint=b"\0" * 8,
+                       embedding=mat[i], model_id="smoke", text=texts[i])
+                for i in range(lo, min(lo + 4096, SERVER_ROWS))]))
+        load_s = time.perf_counter() - t0
+
+        bare = _ServerThread(_bare_state(backend, svc))
+        servers.append(bare)
+        prod = _ServerThread(state)
+        servers.append(prod)
+        call, plain = _Http(prod.port), _Http(bare.port)
+        ph = raw[123].tobytes().hex()
+        fp_query = {"tenant_id": 0, "modality": "image", "k": 10, "algorithm": "phash",
+                    "fingerprint_hex": ph}
+
+        # ---- the main path: launch counts are read over exactly this block
+        reset_counts()
+
+        def ab(method, path, body, want):
+            """p50 ms on the noop server and on the production one, the
+            two in turns (each first in half the pairs; two warm-ups)."""
+            lat = ([], [])
+            for i in range(2 * SERVER_REPS + 2):
+                for side in ((0, 1) if i % 2 else (1, 0)):
+                    st, hdrs, res, ms = (plain, call)[side](method, path, body, token=svc)
+                    check(st == 200 and want(res, hdrs, side), f"{path}: {st} {res} {hdrs}")
+                    if i >= 2:
+                        lat[side].append(ms)
+            return statistics.median(lat[0]), statistics.median(lat[1]), res
+
+        # the middleware's cost: one pHash fingerprint_hex, and whoami (a
+        # handler that does nothing), with the noop limiter and sink
+        # against the defaults and the log sink
+        fp_bare, fp_prod, res = ab(
+            "POST", "/v1/query", fp_query,
+            lambda r, h, side: r["hits"][0]["record_id"] == 123 and (
+                side == 0 or h.get("x-ratelimit-limit") == "200"))
+        check(_hit_rows(res["hits"]) == _plain_hamming_hits(torch, backend, [ph], 10)[0],
+              "fingerprint_hex hits == plain path")
+        who_bare, who_prod, _ = ab("GET", "/v1/auth/whoami", b"",
+                                   lambda r, h, side: r["tenant_id"] == 0)
+
+        # accounts: signup, login, whoami, logout
+        st, hdrs, res, _ = call("POST", "/v1/auth/signup",
+                                {"email": "smoke@example.com", "password": "smoke-pass-1"})
+        check(st == 201 and res["tenant_id"] == 3, f"signup (tenants 0 and 2 reserved): {res}")
+        st, hdrs, res, _ = call("POST", "/v1/auth/login",
+                                {"email": "smoke@example.com", "password": "smoke-pass-1"})
+        check(st == 200 and "HttpOnly" in hdrs.get("set-cookie", ""), f"login: {st}")
+        cookie = {"cookie": hdrs["set-cookie"].split(";", 1)[0]}
+        st, _, res, _ = call("GET", "/v1/auth/whoami", headers=cookie)
+        check(st == 200 and res == {"tenant_id": 3, "key_id": "session:smoke@example.com"},
+              f"whoami by session: {res}")
+        st, _, _, _ = call("POST", "/v1/auth/logout", headers=cookie)
+        check(st == 200, "logout")
+        st, _, _, _ = call("GET", "/v1/auth/whoami", headers=cookie, metered=False)
+        check(st == 401, "the session is gone after logout")
+        # admin keys: create, list, a scoped key's 403, a revoked key's 401
+        st, _, issued, _ = call("POST", "/v1/admin/keys", {"tenant_id": 2, "key_id": "scoped",
+                                                           "scopes": ["query"]}, token=svc)
+        check(st == 201 and issued["scopes"] == ["query"], f"key create: {issued}")
+        st, _, res, _ = call("GET", "/v1/admin/keys", token=svc)
+        check(st == 200 and [r["key_id"] for r in res["keys"]] == ["scoped"], "key list")
+        st, _, res, _ = call("POST", "/v1/ingest/text/2/1", PANGRAM.encode(),
+                             token=issued["token"], metered=False)
+        check(st == 403 and "scope" in res["message"], f"the scoped key may not ingest: {st}")
+        st, _, _, _ = call("POST", "/v1/query", {"tenant_id": 2, "modality": "text",
+                                                 "terms": ["fox"]}, token=issued["token"])
+        check(st == 200, "the scoped key may query")
+        st, _, res, _ = call("GET", "/v1/admin/keys", token=t2)
+        check(st == 200 and [r["tenant_id"] for r in res["keys"]] == [2], "tenant-scoped list")
+        st, _, _, _ = call("DELETE", "/v1/admin/keys/scoped", token=svc)
+        check(st == 200, "revoke")
+        st, _, _, _ = call("POST", "/v1/query", {"tenant_id": 2, "modality": "text",
+                                                 "terms": ["fox"]}, token=issued["token"],
+                           metered=False)
+        check(st == 401, "a revoked key's 401")
+        st, _, _, _ = call("POST", "/v1/admin/compact", b"", token=svc)
+        check(st == 501, "compaction answers 501 in this build")
+        # the public routes
+        for path in ("/v1/info", "/v1/algorithms", "/metrics", "/", "/docs",
+                     "/docs/getting-started", "/healthz"):
+            st, hdrs, res, _ = call("GET", path)
+            check(st == 200, f"GET {path}: {st}")
+            if path == "/metrics":
+                check(b"ucfp_http_requests_total" in res, "metrics render")
+            if path == "/v1/info":
+                check(res["name"] == "ucfp-tpu" and res["ingest_coalesce_flushes"] == 0,
+                      f"info: {res}")
+        # the demo route, one request per modality, nothing stored
+        demo = {}
+        for ct, body, q in (("image/png", _fixed_png(10, 64, 64), None),
+                            ("audio/f32", _fixed_audio().tobytes(), {"sample_rate": "8000"}),
+                            ("text/plain", PANGRAM.encode(), None)):
+            st, _, res, _ = call("POST", "/v1/demo/fingerprint", body, q,
+                                 headers={"content-type": ct})
+            check(st == 200 and res["stored"] is False, f"demo {ct}: {st} {res}")
+            demo[ct] = bytes.fromhex(res["fingerprint_hex"])
+        check(xxhash.xxh3_64_hexdigest(demo["image/png"]) == golden["image/multi/64x64"]
+              and demo["audio/f32"] == amod.fingerprint_wang(
+                  _fixed_audio(), 8000, 0, 0, device="cpu").fingerprint
+              and demo["text/plain"] == tmod.fingerprint_minhash(PANGRAM, 0, 0).fingerprint,
+              "demo fingerprints == the goldens / the CPU's")
+
+        # the inputs cache: put, use by an ingest and each inspector, delete
+        inputs = {}
+        for kind, body, q in (("text", LONG_TEXT.encode(), None),
+                              ("image", _fixed_png(12, 256, 256), None),
+                              ("audio", _fixed_audio().tobytes(), {"sample_rate": "8000"})):
+            st, _, res, _ = call("POST", "/v1/inputs/0", body, q, token=svc)
+            check(st == 201 and res["bytes"] == len(body), f"input put {kind}: {res}")
+            inputs[kind] = res["input_id"]
+        for i, kind in enumerate(("text", "image", "audio")):
+            st, _, res, _ = call("POST", f"/v1/ingest/{kind}/0/{7 * 10**9 + i}", b"",
+                                 {"input_id": inputs[kind]}, token=svc)
+            check(st == 201, f"ingest {kind} by input_id: {st} {res}")
+            st, _, res, _ = call("POST", f"/v1/pipeline/inspect/{kind}", b"",
+                                 {"input_id": inputs[kind]}, token=svc)
+            check(st == 200, f"inspect {kind} by input_id: {st}")
+            st, _, _, _ = call("DELETE", f"/v1/inputs/0/{inputs[kind]}", token=svc)
+            check(st == 200, f"input delete {kind}")
+            st, _, res, _ = call("POST", f"/v1/pipeline/inspect/{kind}", b"",
+                                 {"input_id": inputs[kind]}, token=svc)
+            check(st == 404 and res["error"] == "input_not_found", "a deleted input's 404")
+        # the image inspector's bundle against the goldens
+        for seed, w, h in ((10, 64, 64), (11, 100, 37), (12, 256, 256), (13, 48, 640)):
+            st, _, res, _ = call("POST", "/v1/pipeline/inspect/image",
+                                 _fixed_png(seed, w, h), token=svc)
+            check(st == 200 and xxhash.xxh3_64_hexdigest(
+                bytes.fromhex(res["fingerprint_hex"])) == golden[f"image/multi/{w}x{h}"],
+                f"inspect_image {w}x{h} == the golden")
+        # the audio inspector against the CPU twin, 8 kHz and 44.1 kHz
+        for sr, secs in ((8000, 3.0), (44100, 2.0)):
+            x = _fixed_audio(secs, sr)
+            for algo in ("wang", "panako", "haitsma"):
+                st, _, res, _ = call("POST", "/v1/pipeline/inspect/audio", x.tobytes(),
+                                     {"sample_rate": str(sr), "algorithm": algo}, token=svc)
+                check(st == 200 and res == json.loads(json.dumps(
+                    amod.inspect_audio(x, sr, algo, device="cpu"))),
+                    f"inspect_audio {algo} at {sr} Hz == the CPU twin")
+
+        # the reranked hybrid against a host recomputation on the same rows
+        pick = 777
+        qv = (mat[pick] + rng.normal(0, 0.05, DIM)).astype(np.float32)
+        hybrid = {"tenant_id": 0, "modality": "text", "k": 10,
+                  "vector": [float(v) for v in qv], "terms": texts[pick].split()[:3]}
+        st, _, first, _ = call("POST", "/v1/query", hybrid, token=svc)
+        check(st == 200 and first["hits"], "hybrid")
+        rerank_ms = []
+        for _ in range(SERVER_REPS):
+            st, _, res, ms = call("POST", "/v1/query", hybrid, {"rerank": "embedding"},
+                                  token=svc)
+            check(st == 200, f"reranked hybrid: {st}")
+            rerank_ms.append(ms)
+        # the first stage's hits re-scored by stored-embedding cosine in
+        # float32, ties to the lower id; hits without one keep their
+        # place after them
+        qn = float(np.linalg.norm(qv))
+        want, unscored = [], []
+        for h in first["hits"]:
+            e = backend.get_record(0, h["record_id"])["embedding"]
+            if e is None or len(e) != DIM:
+                unscored.append((h["record_id"], h["score"]))
+                continue
+            e = np.asarray(e, np.float32)
+            want.append((h["record_id"], float(qv @ e / (qn * float(np.linalg.norm(e))))))
+        want = sorted(want, key=lambda t: (-t[1], t[0])) + unscored
+        check([(h["record_id"], h["score"]) for h in res["hits"]] == want
+              and res["hits"][0]["record_id"] == base + pick,
+              "reranked hits and scores == the host recomputation")
+
+        # pull ingest, NDJSON: a stop after one acked batch and one handed
+        # out, then a fresh source resumes from the durable offset
+        nd = os.path.join(tmp, "rows.ndjson")
+        with open(nd, "w") as f:
+            for i in range(1024):
+                f.write(json.dumps({"tenant_id": 3, "record_id": i, "modality": "text",
+                                    "algorithm": "custom-v1", "fingerprint": [i % 256, 1],
+                                    "text": texts[i]}) + "\n")
+        src = NdjsonIngestSource(nd)
+        b1 = asyncio.run(src.next_batch(256))
+        asyncio.run(backend.upsert(b1))
+        asyncio.run(src.ack([(r.tenant_id, r.record_id) for r in b1]))
+        asyncio.run(src.next_batch(256))  # handed out, never acked: the stop
+        resumed = asyncio.run(run_ingest_loop(NdjsonIngestSource(nd), backend,
+                                              batch_size=256))
+        check(resumed == 768 and int(open(nd + ".ack").read()) == os.path.getsize(nd)
+              and backend.get_record(3, 1023)["text"] == texts[1023],
+              f"NDJSON resumed after the stop: {resumed} rows")
+
+        # pull ingest, the content spool: the CLI in a subprocess on the
+        # card, and the same files through the HTTP ingest routes
+        spool = os.path.join(tmp, "spool")
+        files = _spool_files(spool)
+        timed_spool = os.path.join(tmp, "spool-timed")
+        shutil.copytree(spool, timed_spool)
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "ucfp_tpu_torch.ingest", "--data-dir",
+             os.path.join(tmp, "spool-db"), "--spool", spool, "--device", dev.type],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0 and f"ingested {len(files)} record(s), 0 skipped"
+              in cli.stdout, f"ingest CLI: {cli.returncode} {cli.stdout} {cli.stderr[-2000:]}")
+        http_fp = {}
+        imgs = [rid for rid, (ext, _) in files.items() if ext == "bmp"]
+        for lo in range(0, len(imgs), 64):
+            body = b"".join(struct.pack("<QI", rid, len(files[rid][1])) + files[rid][1]
+                            for rid in imgs[lo:lo + 64])
+            st, _, res, _ = call("POST", "/v1/ingest/image/batch/1", body, token=svc)
+            check(st == 201 and res["count"] == len(imgs[lo:lo + 64]), f"image batch: {st}")
+            http_fp.update({r["record_id"]: r["fingerprint_hex"] for r in res["records"]})
+        body = "\n".join(json.dumps({"record_id": rid, "text": data.decode()})
+                         for rid, (ext, data) in files.items() if ext == "txt").encode()
+        st, _, res, _ = call("POST", "/v1/ingest/text/batch/1", body, token=svc)
+        check(st == 201 and res["count"] == SPOOL_TEXTS, f"text batch: {st}")
+        http_fp.update({r["record_id"]: r["fingerprint_hex"] for r in res["records"]})
+        for rid, (ext, data) in files.items():
+            if ext == "f32":
+                st, _, res, _ = call("POST", f"/v1/ingest/audio/1/{rid}", data,
+                                     {"sample_rate": "8000"}, token=svc)
+                check(st == 201, f"audio ingest: {st}")
+                http_fp[rid] = res["fingerprint_hex"]
+        # the same spool drained in this process, timed
+        drained = EmbeddedBackend(os.path.join(tmp, "spool-db2"), device=dev)
+        others.append(drained)
+        t0 = time.perf_counter()
+        n = asyncio.run(run_ingest_loop(SpoolDirectoryIngestSource(timed_spool, device=dev),
+                                        drained, batch_size=64))
+        drain_s = time.perf_counter() - t0
+        spooled = EmbeddedBackend(os.path.join(tmp, "spool-db"), device=dev)
+        others.append(spooled)
+        for store in (spooled, drained):
+            bad = [rid for rid in files
+                   if store.get_record(1, rid)["fingerprint"].hex() != http_fp[rid]]
+            check(n == len(files) and not bad,
+                  f"spool fingerprints == the HTTP ingest's ({len(bad)} differ)")
+        check(sorted(os.listdir(os.path.join(spool, "done"))) == sorted(
+            f"1_{rid}.{ext}" for rid, (ext, _) in files.items()), "spool files moved to done/")
+
+        # the 429: a second production state at UCFP_RATELIMIT_RPS=1, _BURST=2
+        with _environ(UCFP_RATELIMIT_RPS="1", UCFP_RATELIMIT_BURST="2"):
+            rl_state = sapp.state_from_env(data_dir=os.path.join(tmp, "rl-db"),
+                                           keys_file=keys, device=dev)
+        others.append(rl_state.index)
+        rl = _ServerThread(rl_state)
+        servers.append(rl)
+        rl_call = _Http(rl.port)
+        got = [rl_call("GET", "/v1/auth/whoami", token=t2)[:2] for _ in range(3)]
+        check([s for s, _ in got] == [200, 200, 429]
+              and got[2][1].get("retry-after") == "1"
+              and got[2][1].get("x-ratelimit-limit") == "2"
+              and got[2][1].get("x-ratelimit-remaining") == "0"
+              and got[1][1].get("x-ratelimit-remaining") == "0",
+              f"429 with Retry-After and x-ratelimit-*: {got}")
+
+        # one usage line per metered request, and /v1/admin/usage over them
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            with open(usage_log) as f:
+                lines = [json.loads(ln) for ln in f if ln.strip()]
+            if len(lines) >= call.metered:
+                break
+            time.sleep(0.05)
+        check(len(lines) == call.metered, f"usage lines {len(lines)} == metered "
+              f"requests {call.metered}")
+        st, _, res, _ = call("GET", "/v1/admin/usage", {"limit": "10000"}, token=svc)
+        check(st == 200 and len(res["events"]) == len(lines)
+              and sum(e["bytes_in"] for e in res["events"]) == sum(
+                  e["bytes_in"] for e in lines), "admin usage == the log")
+        ops = {}
+        for e in lines:
+            ops[e["op"]] = ops.get(e["op"], 0) + 1
+        launches = read_counts()
+        # ---- end of the main path
+        check(all(launches[name] > 0 for name in ("scores_topk_fused_batched",
+                                                   "hamming_topk_fused_batched",
+                                                   "select_topk")),
+              f"every kernel of the phase's path launched: {launches}")
+        out = {
+            "rows": {"phash": SERVER_ROWS, "vectors": SERVER_ROWS, "dim": DIM},
+            "load_s": load_s,
+            "p50_ms": {"fingerprint_hex_noop": fp_bare, "fingerprint_hex_production": fp_prod,
+                       "whoami_noop": who_bare, "whoami_production": who_prod,
+                       "hybrid_rerank_embedding": statistics.median(rerank_ms)},
+            "middleware_ms": {"fingerprint_hex": fp_prod - fp_bare,
+                              "whoami": who_prod - who_bare},
+            "usage_lines": len(lines), "usage_ops": ops,
+            "spool_files": len(files),
+            "spool_files_per_s": len(files) / drain_s,
+            "spool_drain_s": drain_s, "spool_cli_s": cli_s,
+            "launches": launches,
+            "phase_s": time.perf_counter() - t_phase,
+        }
+        say(f"server: p50 of one pHash fingerprint_hex at {SERVER_ROWS} rows {fp_prod:.3f} ms "
+            f"(defaults + log sink) vs {fp_bare:.3f} ms (noop limiter and sink); whoami "
+            f"{who_prod:.3f} vs {who_bare:.3f} ms")
+        say(f"server: spool {len(files)} files in {drain_s:.2f} s = "
+            f"{out['spool_files_per_s']:.1f} files/s in process; the CLI subprocess "
+            f"{cli_s:.2f} s including its start")
+        say("server: " + json.dumps(out))
+        return out
+    finally:
+        for srv in servers:
+            srv.stop()
+        for store in others:
+            store.close()
+        _close_backend(torch, None, backend, tmp)
 
 
 # -- the A/B timings -----------------------------------------------------------
@@ -4164,7 +4644,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="device,build,kernels,conformance,served,int8,qbatch,int4,"
-                           "int2,sketch,sharded,bench,audio,text")
+                           "int2,sketch,sharded,bench,audio,text,server")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -4201,6 +4681,8 @@ def main() -> int:
         served.append(phase_audio(torch, dev, card))
     if "text" in phases:
         served.append(phase_text(torch, dev))
+    if "server" in phases:
+        served.append(phase_server(torch, dev))
     if kernels is not None:
         say(json.dumps(_findings_line(kernels, served)))
     say(json.dumps({"ok": True, "device": {

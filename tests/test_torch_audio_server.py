@@ -17,6 +17,9 @@ from ucfp_tpu_torch.index.embedded import EmbeddedBackend
 from ucfp_tpu_torch.server.app import ServerState, build_server
 from ucfp_tpu_torch.server.auth import StaticSingleKey
 from ucfp_tpu_torch.server.http import Request
+from ucfp_tpu_torch.server.inputs_cache import InputsCache
+from ucfp_tpu_torch.server.ratelimit import NoopRateLimiter
+from ucfp_tpu_torch.server.usage import NoopUsageSink
 
 
 @pytest.fixture(autouse=True)
@@ -133,10 +136,12 @@ def test_audio_errors_answer_alike(tmp_path):
 
 
 def test_neural_stream_and_inspect_answer_501(tmp_path):
-    """The inspector is still a later slice's (501); the neural route and
-    the stream route are served now (201)."""
+    """Nothing here answers 501 any more: the inspector (200), the neural
+    route and the stream route (201) are served."""
     t = EmbeddedBackend(str(tmp_path), device="cpu")
-    app = build_server(ServerState(index=t, api_keys=StaticSingleKey(TOKEN)))
+    app = build_server(ServerState(index=t, api_keys=StaticSingleKey(TOKEN),
+                                   rate_limit=NoopRateLimiter(),
+                                   usage=NoopUsageSink(), inputs=InputsCache()))
     h = {"authorization": f"Bearer {TOKEN}"}
     body = _clip(1, 1.0).tobytes()
 
@@ -152,7 +157,8 @@ def test_neural_stream_and_inspect_answer_501(tmp_path):
         for path, q in (("/v1/pipeline/inspect/audio", {"sample_rate": "8000"}),
                         ("/v1/pipeline/inspect/audio/0", {"sample_rate": "8000"})):
             st, res = call(path, q)
-            assert st == 501 and res["error"] == "unsupported", (path, res)
+            assert st == 200 and res["algorithm"] == "audiofp-wang-v1", (path, res)
+            assert res["sample_rate"] == 8000 and res["total_landmarks"] > 0, res
         st, res = call("/v1/ingest/audio/0/1", {"sample_rate": "8000",
                                                 "algorithm": "neural"})
         assert st == 201 and res["algorithm"] == "audiofp-neural-v1", res

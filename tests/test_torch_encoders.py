@@ -41,10 +41,16 @@ def _jkey(k):
 def _reference_weights_outside_jit():
     """The reference draws its weights lazily inside its jitted forward;
     drawing them once outside jit caches concrete arrays, so any input
-    shape can follow."""
+    shape can follow. Afterwards the caches are cleared, so that later
+    tests on the same worker see the reference as it was (its goldens
+    were made with the weights drawn inside jit)."""
     for fn in (renc._image_params, renc._audio_params):
         fn.cache_clear()
         fn()
+    yield
+    for fn in (renc._image_params, renc._audio_params,
+               renc._image_forward, renc._audio_forward):
+        fn.cache_clear()
 
 
 @pytest.mark.parametrize("seed", KEYS)

@@ -32,6 +32,9 @@ from ucfp_tpu_torch.index.embedded import EmbeddedBackend
 from ucfp_tpu_torch.server.app import ServerState, build_server
 from ucfp_tpu_torch.server.auth import StaticSingleKey
 from ucfp_tpu_torch.server.http import Request
+from ucfp_tpu_torch.server.inputs_cache import InputsCache as TInputsCache
+from ucfp_tpu_torch.server.ratelimit import NoopRateLimiter as TNoopRateLimiter
+from ucfp_tpu_torch.server.usage import NoopUsageSink as TNoopUsageSink
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TOKEN = "t0k"
@@ -52,7 +55,10 @@ class Servers:
                          timeout_secs=120.0)
         self.t_index = EmbeddedBackend(str(tmp_path / "torch"), device="cpu")
         self.t = build_server(ServerState(index=self.t_index,
-                                          api_keys=StaticSingleKey(TOKEN)),
+                                          api_keys=StaticSingleKey(TOKEN),
+                                          rate_limit=TNoopRateLimiter(),
+                                          usage=TNoopUsageSink(),
+                                          inputs=TInputsCache()),
                               timeout_secs=120.0)
 
     def call(self, method, path, body=b"", query=None, token=TOKEN):
@@ -246,11 +252,13 @@ def test_same_bodies_int8(tmp_path, monkeypatch, n):
 
 
 def test_later_slice_routes_answer_501(tmp_path):
-    """What is still left for a later slice (the embedding reranker and
-    the inputs cache) answers 501; the text routes and query branches
-    that once did are served now."""
+    """What is still left for a later slice (compaction) answers 501; the
+    embedding reranker, the inputs cache, the text routes and the query
+    branches that once did are served now."""
     t = EmbeddedBackend(str(tmp_path), device="cpu")
-    app = build_server(ServerState(index=t, api_keys=StaticSingleKey(TOKEN)))
+    app = build_server(ServerState(index=t, api_keys=StaticSingleKey(TOKEN),
+                                   rate_limit=TNoopRateLimiter(),
+                                   usage=TNoopUsageSink(), inputs=TInputsCache()))
     h = {"authorization": f"Bearer {TOKEN}"}
 
     def call(path, body, query=None):
@@ -259,11 +267,13 @@ def test_later_slice_routes_answer_501(tmp_path):
         return asyncio.run(app.handle_request(req))[0].status
 
     try:
+        assert call("/v1/admin/compact", b"") == 501
         assert call("/v1/query", {"tenant_id": 0, "modality": "text",
-                                  "terms": ["a"]}, {"rerank": "embedding"}) == 501
+                                  "terms": ["a"]}, {"rerank": "embedding"}) == 200
+        # an input id the cache does not hold: 404, no longer 501
         for path in ("/v1/ingest/text/0/1", "/v1/ingest/image/0/1",
                      "/v1/ingest/audio/0/1"):
-            assert call(path, b"x", {"input_id": "abc", "sample_rate": "8000"}) == 501
+            assert call(path, b"x", {"input_id": "abc", "sample_rate": "8000"}) == 404
         assert call("/v1/query", {"tenant_id": 0, "modality": "text",
                                   "terms": ["a"]}) == 200
         assert call("/v1/query", {"tenant_id": 0, "modality": "text",
@@ -296,6 +306,13 @@ def test_imports_without_jax_or_reference():
             "ucfp_tpu_torch.ops.textsig", "ucfp_tpu_torch.index.bm25",
             "ucfp_tpu_torch.modality.text",
             "ucfp_tpu_torch.modality.providers"} <= set(mods)
+    # the production server, the reranker and pull ingest
+    assert {f"ucfp_tpu_torch.server.{m}" for m in (
+        "usage", "ratelimit", "webhooks", "keystore", "accounts",
+        "inputs_cache", "manifest", "webui", "docsite")} <= set(mods)
+    assert {"ucfp_tpu_torch.rerank.embedding", "ucfp_tpu_torch.ingest.source",
+            "ucfp_tpu_torch.ingest.filesource",
+            "ucfp_tpu_torch.ingest.__main__"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -319,7 +336,10 @@ def test_static_scan_finds_no_reference_imports():
     assert {"ucfp_tpu_torch/models/encoders.py", "ucfp_tpu_torch/models/jaxrand.py",
             "ucfp_tpu_torch/models/hf_local.py", "ucfp_tpu_torch/index/bm25.py",
             "ucfp_tpu_torch/ops/textsig.py", "ucfp_tpu_torch/modality/text.py",
-            "ucfp_tpu_torch/modality/providers.py"} <= names
+            "ucfp_tpu_torch/modality/providers.py",
+            "ucfp_tpu_torch/server/accounts.py", "ucfp_tpu_torch/server/keystore.py",
+            "ucfp_tpu_torch/server/webhooks.py", "ucfp_tpu_torch/rerank/embedding.py",
+            "ucfp_tpu_torch/ingest/filesource.py"} <= names
     offenders = [str(p) for p in files if bad.search(p.read_text())]
     assert not offenders
     # the native text sources build from the package alone: no include

@@ -44,12 +44,17 @@ def _reference_weights_outside_jit():
     """The reference draws its stand-in weights lazily inside the jitted
     forward, so its cache would hold tracers and a second input shape
     would fail (UnexpectedTracerError); drawing them once outside jit
-    caches concrete arrays."""
+    caches concrete arrays. Afterwards the caches are cleared, so that
+    later tests on the same worker see the reference as it was."""
     from ucfp_tpu.models import encoders as renc
 
     for fn in (renc._image_params, renc._audio_params):
         fn.cache_clear()
         fn()
+    yield
+    for fn in (renc._image_params, renc._audio_params,
+               renc._image_forward, renc._audio_forward):
+        fn.cache_clear()
 
 
 def docs(n: int, seed: int = 0) -> list[str]:

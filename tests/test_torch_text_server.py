@@ -198,11 +198,11 @@ def test_semantic_image_and_neural_audio_routes(tmp_path):
     from ucfp_tpu.models import encoders as renc
     from test_conformance import fixed_audio, fixed_png
 
-    for fn in (renc._image_params, renc._audio_params):
-        fn.cache_clear()
-        fn()  # concrete weights outside the reference's jit
     s = Servers(tmp_path)
     try:
+        for fn in (renc._image_params, renc._audio_params):
+            fn.cache_clear()
+            fn()  # concrete weights outside the reference's jit
         for rid, (path, body, q) in enumerate((
                 ("/v1/ingest/image/0/{}/semantic", fixed_png(10, 64, 64), {}),
                 ("/v1/ingest/image/0/{}", fixed_png(11, 100, 37),
@@ -232,4 +232,9 @@ def test_semantic_image_and_neural_audio_routes(tmp_path):
              "vector": [float(v) for v in emb]}).encode(), {})
         assert [h["record_id"] for h in bj["hits"]] == [h["record_id"] for h in bt["hits"]]
     finally:
+        # later tests on this worker must see the reference as it was:
+        # its goldens were made with the weights drawn inside jit
+        for fn in (renc._image_params, renc._audio_params,
+                   renc._image_forward, renc._audio_forward):
+            fn.cache_clear()
         s.close()

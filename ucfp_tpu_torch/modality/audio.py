@@ -16,12 +16,16 @@ differ); the spectral work runs in ops.audio on the device named by
 `device` (the CUDA card unless the caller asks for the CPU). Records are
 byte-identical to the reference's. The neural path's log-mel windows
 and its stand-in MLP (models.encoders) run on the same device.
-inspect_audio belongs to a later slice.
+  * inspect_audio                              the inspector's stages:
+                                               envelope, spectrograms,
+                                               peaks, landmarks and the
+                                               chosen fingerprint
 """
 
 from __future__ import annotations
 
 import io
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -855,3 +859,160 @@ class StreamingWangSession:
         rec.metadata = f"segment={self._seg_index}".encode()
         self._seg_index += 1
         return rec
+
+
+# ---------------------------------------------------------------------------
+# Inspect (audio.rs:600-699)
+# ---------------------------------------------------------------------------
+
+
+_VIRIDIS_STOPS = np.array(
+    # (r, g, b) anchors of the viridis colormap, interpolated linearly
+    [(68, 1, 84), (59, 82, 139), (33, 145, 140), (94, 201, 98), (253, 231, 37)],
+    dtype=np.float32,
+)
+
+
+def _spec_png_b64(grid: np.ndarray, target_w: int = 256) -> str:
+    """Magnitude grid [T, F] -> viridis PNG (freq up, time right), b64.
+
+    Mirrors the reference inspector's spectrogram rendering
+    (audio.rs:648-652: linear grid downsampled by time-axis peak pooling,
+    painted viridis). Log-compressed for visibility.
+    """
+    import base64
+
+    from PIL import Image
+
+    t_dim, f_dim = grid.shape
+    w = min(target_w, max(t_dim, 1))
+    # peak-pool the time axis down to w columns
+    edges = (np.arange(w + 1) * t_dim / w).astype(int)
+    pooled = np.stack(
+        [grid[edges[i]:max(edges[i + 1], edges[i] + 1)].max(axis=0)
+         for i in range(w)]
+    )  # [w, F]
+    db = np.log10(pooled + 1e-9)
+    lo, hi = db.min(), db.max()
+    norm = (db - lo) / max(hi - lo, 1e-9)  # [w, F] in 0..1
+    pos = norm * (len(_VIRIDIS_STOPS) - 1)
+    i0 = np.clip(pos.astype(int), 0, len(_VIRIDIS_STOPS) - 2)
+    frac = (pos - i0)[..., None]
+    rgb = (_VIRIDIS_STOPS[i0] * (1 - frac) + _VIRIDIS_STOPS[i0 + 1] * frac)
+    img = rgb.transpose(1, 0, 2)[::-1].astype(np.uint8)  # freq up, time right
+    buf = io.BytesIO()
+    Image.fromarray(img, "RGB").save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _downsample_envelope(x: np.ndarray, buckets: int) -> list[float]:
+    n = len(x)
+    out = []
+    for i in range(buckets):
+        lo = i * n // buckets
+        hi = max(lo + 1, (i + 1) * n // buckets)
+        out.append(float(np.max(np.abs(x[lo:hi]))))
+    return out
+
+
+def inspect_audio(
+    samples: np.ndarray,
+    sample_rate: int,
+    algorithm: str = "wang",
+    cfg: WangConfig | None = None,
+    device=None,
+) -> dict:
+    """Shared DSP stages (envelope, spectrograms, peaks, landmark pairs)
+    plus the selected algorithm's fingerprint. The spectrogram, the peak
+    pick and the fingerprints run on `device`; the mel grid is computed
+    on the host from the exact power grid (float64 products rounded to
+    float32), so it is the same wherever the spectrogram ran."""
+    x = _check_input(samples, sample_rate)
+    cfg = cfg or WangConfig()
+    duration_secs = len(x) / sample_rate
+    if algorithm in ("wang", "panako") and sample_rate != CANONICAL_SR:
+        # the stored fingerprint is computed at the canonical rate; the
+        # overlay must show the same constellation the hash actually uses
+        x = dsp.resample_linear(x, sample_rate, CANONICAL_SR)
+        sample_rate = CANONICAL_SR
+
+    envelope = _downsample_envelope(x, 256)
+
+    # ONE STFT + peak pick serves the peak list, the landmark overlay,
+    # AND (for wang) the fingerprint itself
+    t, f, mags, power, hashes, t1 = constellation.peaks_and_landmarks(
+        x, sample_rate, cfg, device=device
+    )
+    n_frames, n_bins = power.shape
+    max_mag = max(float(power.max()), 1e-9)
+    bin_hz = sample_rate / 1024.0
+    frame_ms = 1000.0 * 256.0 / sample_rate
+
+    peaks = [
+        {
+            "t_ms": float(tt) * frame_ms,
+            "freq_hz": float(ff) * bin_hz,
+            "db": 10.0 * math.log10(max(float(m), 1e-9) / max_mag),
+        }
+        for tt, ff, m in list(zip(t, f, mags))[:256]
+    ]
+
+    # landmark pairs for the overlay (capped at 256)
+    landmarks = []
+    for h, a in list(zip(hashes, t1))[:256]:
+        f1 = (int(h) >> 22) & 0x3FF
+        f2 = (int(h) >> 12) & 0x3FF
+        dt = int(h) & 0xFFF
+        landmarks.append(
+            {
+                "t1_ms": float(a) * frame_ms,
+                "f1_hz": f1 * bin_hz,
+                "t2_ms": (float(a) + dt) * frame_ms,
+                "f2_hz": f2 * bin_hz,
+            }
+        )
+
+    # mel spectrogram (64 Slaney bands over full range, audio.rs:656-665)
+    bank = dsp.mel_filterbank(64, 1024, sample_rate, 0.0, sample_rate / 2)
+    mel = (power.astype(np.float64) @ bank.astype(np.float64)).astype(np.float32)
+    lin_spec_png = _spec_png_b64(power)
+    mel_spec_png = _spec_png_b64(mel)
+
+    if algorithm == "wang":
+        # assemble the Record from the landmarks already computed above —
+        # identical packing to fingerprint_wang, zero extra device work
+        buf = np.empty((len(hashes), 2), dtype="<u4")
+        buf[:, 0] = hashes
+        buf[:, 1] = t1
+        fp = Record(
+            tenant_id=0, record_id=0, modality=Modality.AUDIO,
+            algorithm=ALGORITHM_WANG, fingerprint=buf.tobytes(),
+            config_hash=_wang_cfg_hash(cfg, ALGORITHM_WANG),
+        )
+    elif algorithm == "panako":
+        fp = fingerprint_panako(x, sample_rate, 0, 0, device=device)
+    elif algorithm == "haitsma":
+        fp = fingerprint_haitsma(x, sample_rate, 0, 0, device=device)
+    elif algorithm == "neural":
+        fp = fingerprint_neural(x, sample_rate, 0, 0, device)
+    else:
+        raise ModalityError(f"unknown inspect algorithm {algorithm!r}")
+
+    return {
+        "algorithm": fp.algorithm,
+        "duration_secs": duration_secs,
+        "sample_rate": sample_rate,
+        "envelope": envelope,
+        "n_frames": int(n_frames),
+        "n_bins": int(n_bins),
+        "mel_bands": int(mel.shape[1]),
+        "lin_spec_png_b64": lin_spec_png,
+        "mel_spec_png_b64": mel_spec_png,
+        "peaks": peaks,
+        "total_peaks": int(len(t)),
+        "landmarks": landmarks,
+        "total_landmarks": int(len(hashes)),
+        "fingerprint_hex": fp.fingerprint.hex()[:4096],
+        "fingerprint_bytes": len(fp.fingerprint),
+        "config_hash": fp.config_hash,
+    }

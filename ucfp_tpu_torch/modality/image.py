@@ -6,6 +6,7 @@ Port of ucfp_tpu/modality/image.py for the perceptual hashes:
   * fingerprint_batch   -> multi bundles for same-shape decoded images
 
   * fingerprint_semantic -> 512-d embedding record ("embedding-image-local")
+  * inspect_image        -> the per-stage view of the multi bundle
 
 Decode and the exact fixed-point host resize are host code, copied from
 the reference (byte-identical); everything after the luma plane runs in
@@ -420,3 +421,62 @@ def fingerprint_semantic(
             f"model {model_id!r} is not loaded (active encoder: {actual})"
         )
     return semantic_record(emb, tenant_id, record_id, model_id=actual)
+
+
+def inspect_image(data: bytes, pre: PreprocessConfig | None = None,
+                  device=None) -> dict:
+    """Per-stage extractor (reference inspect_image, image.rs:291-339).
+
+    Returns the original size, PNG-b64 thumbnails of the 32x32 and 8x8
+    grayscale stages, the integer aHash mean, and the final multi bundle
+    (hashed on `device`).
+    """
+    import base64
+
+    from PIL import Image
+
+    pre = pre or PreprocessConfig()
+    rgb = decode_rgb(data, pre)
+    h, w = rgb.shape[:2]
+    gray = imagehash.np_luma(rgb)
+    g32 = imagehash.np_resize(gray, 32, 32).astype(np.uint8)
+    g8 = imagehash.np_resize(gray, 8, 8).astype(np.uint8)
+    ahash_mean = int(g8.astype(np.uint32).sum()) // 64
+
+    def png_b64(a: np.ndarray) -> str:
+        buf = io.BytesIO()
+        Image.fromarray(a, mode="L").save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    # max-256px thumbnail of the original (visualization only: PIL's C
+    # resize, not the exact-int path)
+    max_edge = 256
+    if max(h, w) > max_edge:
+        scale = max_edge / max(h, w)
+        nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
+        thumb = np.asarray(
+            Image.fromarray(rgb, "RGB").resize(
+                (nw, nh), Image.Resampling.BILINEAR
+            ),
+            dtype=np.uint8,
+        )
+    else:
+        thumb = rgb
+    tbuf = io.BytesIO()
+    Image.fromarray(thumb, mode="RGB").save(tbuf, format="PNG")
+    # reuse the decode: fingerprint_multi would decode the input again
+    out = _multi_outputs(rgb[None], device)
+    fp = imagehash.serialize_multihash(out, 0)
+
+    return {
+        "algorithm": ALGORITHM_MULTI,
+        "width": w,
+        "height": h,
+        "original_png_b64": base64.b64encode(tbuf.getvalue()).decode(),
+        "gray32_png_b64": png_b64(g32),
+        "gray8_png_b64": png_b64(g8),
+        "ahash_mean": ahash_mean,
+        "fingerprint_hex": fp.hex(),
+        "fingerprint_bytes": len(fp),
+        "config_hash": pre.config_hash(),
+    }

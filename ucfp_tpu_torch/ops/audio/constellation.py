@@ -16,6 +16,8 @@ batch row equals the single form.
     by (t, f) with a stable sort, invalid ones last.
   * wang_pairs / panako_triplets over the W = 256 forward-successor
     window (Tensor.unfold of an edge-padded copy).
+  * peaks_and_landmarks: one spectrogram and one peak pick for the audio
+    inspector's overlays and its Wang fingerprint.
 
 Hashes come back as int64 holding the reference's uint32 values (torch's
 uint32 has no shifts): the pairing fields are masked to 32 bits, so every
@@ -282,3 +284,30 @@ def extract_panako_batch(stack: np.ndarray, sr: int, cfg: PanakoConfig,
                          n_fft: int = 1024, hop: int = 256, device=None) -> list:
     """Batched extract_panako (see extract_landmarks_batch)."""
     return _extract(stack, sr, cfg, panako_triplets, n_fft, hop, device)
+
+
+def peaks_and_landmarks(
+    samples: np.ndarray, sr: int, cfg: WangConfig,
+    n_fft: int = 1024, hop: int = 256, device=None,
+) -> tuple:
+    """One STFT + one peak pick serving both the inspector overlays and
+    the wang fingerprint: -> (t, f, mag_power, power, hashes, t1), host
+    numpy. The exact integer spectrogram (int8 products: torch._int_mm
+    on the card) and the per-slab selection (csrc/select.cu on the card)
+    run on `device`; power comes back as the float32 grid."""
+    power = _power_f32(dsp.quantize_samples_i16(samples), n_fft, hop, device)
+    slab = max(1, sr // hop)
+    t, f, valid = pick_peaks(
+        power, slab, cfg.peaks_per_sec, cfg.min_anchor_mag_db,
+        getattr(cfg, "local_floor", False),
+    )
+    h, t1, ok = wang_pairs(
+        t, f, valid, cfg.fan_out, cfg.target_zone_t, cfg.target_zone_f
+    )
+    ok = ok.cpu().numpy()
+    tv, fv, validv = t.cpu().numpy(), f.cpu().numpy(), valid.cpu().numpy()
+    pw = power.cpu().numpy()
+    sel_t, sel_f = tv[validv], fv[validv]
+    return (sel_t, sel_f, pw[sel_t, sel_f], pw,
+            h.cpu().numpy()[ok].astype(np.uint32),
+            t1.cpu().numpy()[ok].astype(np.uint32))
