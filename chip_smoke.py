@@ -177,15 +177,38 @@ each:
                   texts and 8 clips (== the HTTP ingest's fingerprints)
                   and the same spool drained in process, timed; one usage
                   line per metered request and /v1/admin/usage over them
+ 16. ops          the last modules: (a) a store of 2^20 pHash rows and
+                  2^17 x 768 vectors, a quarter superseded and 5%
+                  deleted, compacted through /v1/admin/compact while 8
+                  clients query (every hit == the plain path), reopened
+                  (the same rows; hits == the plain path; the exact k = 32
+                  answers == before), and autocompaction under
+                  UCFP_AUTOCOMPACT_MB firing once the log passed it and
+                  doubled; (b) bulk pHash ingest from 16 clients, 256
+                  images of 256 x 256 each, per request and under
+                  UCFP_INGEST_COALESCE_MS=2 (fingerprints == each other ==
+                  the plain path on the CPU, the hashes on the card);
+                  (c) a server subprocess with the boot warm-up (waited
+                  for) and without, the first query's latency of each, at
+                  the 2^15-row floor; (d) an owner on the card and 2
+                  workers on one port: answers == the single process's,
+                  the workers' pHash == the card's, ingest, query and
+                  compact at once, an issued key, a worker's SIGKILL and
+                  restart, kernel launches in the owner and none in the
+                  workers; (e) the same routes' status and JSON through
+                  the native front and the asyncio front, the p50 of one
+                  pHash fingerprint_hex on each; (f) a trace through
+                  UCFP_PROFILER_PORT naming a port kernel, and a
+                  UCFP_PROFILE_DIR bench run writing its trace
 
-In phases 5-11 and 13-15 every served answer is checked against the plain
+In phases 5-11 and 13-16 every served answer is checked against the plain
 path on the same device tensors (or, in phases 7 and 8, the micro-batched
 answer against the unbatched one), and the launch count of every kernel
 that the phase's path runs must rise between a reset just before the
 phase's requests and a read just after (in phase 12, around the bench's
 run). Then one JSON line with every kernel's numbers (launches summed over
-phases 5-15), and last the line {"ok": true, "device": {...}}.
---phases picks a subset (default: all fifteen). One more phase, ab, is
+phases 5-16), and last the line {"ok": true, "device": {...}}.
+--phases picks a subset (default: all sixteen). One more phase, ab, is
 in no default run: the times of #13, #4 / #5, #6, #2, #7, the
 one-query selection and min-BER alone, with no check, for an A/B against a parent's
 checkout (phase_ab); and mma_rates, the throughput of three mma.sync
@@ -199,6 +222,7 @@ import http.client
 import io
 import json
 import os
+import signal
 import statistics
 import struct
 import subprocess
@@ -4126,8 +4150,9 @@ def phase_server(torch, dev) -> dict:
                                                  "terms": ["fox"]}, token=issued["token"],
                            metered=False)
         check(st == 401, "a revoked key's 401")
-        st, _, _, _ = call("POST", "/v1/admin/compact", b"", token=svc)
-        check(st == 501, "compaction answers 501 in this build")
+        st, _, res, _ = call("POST", "/v1/admin/compact", b"", token=svc)
+        check(st == 200 and res["compacted"] is True
+              and res["wal_bytes_after"] <= res["wal_bytes_before"], f"compaction: {res}")
         # the public routes
         for path in ("/v1/info", "/v1/algorithms", "/metrics", "/", "/docs",
                      "/docs/getting-started", "/healthz"):
@@ -4357,6 +4382,864 @@ def phase_server(torch, dev) -> dict:
         for store in others:
             store.close()
         _close_backend(torch, None, backend, tmp)
+
+
+# -- phase 16: the operations slice ---------------------------------------------
+
+# (a) the compaction store, above the fused floor, so #2, #1 and the
+# selection serve its queries: 2^18 pHash rows and 2^15 x 768 vectors, cut
+# for the run's time limit from 2^20 and 2^17 (on one H100 the phase then
+# took 185 s, the reopen 26 s; its compaction, 48 s, was measured with the
+# clients as threads of this process, since moved to a process of their own)
+OPS_PHASH_ROWS = 1 << 18
+OPS_VEC_ROWS = 1 << 15
+OPS_CLIENTS = 8  # clients querying through the compaction
+OPS_THINK_S = 0.02  # each client's pause between queries
+OPS_WINDOW_S = 1.0  # query window before and after the compaction
+OPS_AUTO_ROWS = 1 << 15  # the autocompaction store (pHash rows)
+OPS_AUTO_MB = 1  # its UCFP_AUTOCOMPACT_MB
+# (b) bulk pHash ingest: 16 clients, 256 images of 256 x 256 each
+COALESCE_CLIENTS = 16
+COALESCE_IMAGES = 256
+COALESCE_SIDE = 256
+# (c)-(f): a store at the fused floor (2^15 pHash rows, 2^15 x 128
+# vectors: each subprocess replays it, 768-d rows replayed at ~18 MB/s)
+# served by subprocesses and by the native front
+OPS_SMALL_ROWS = 1 << 15
+OPS_SMALL_DIM = 128
+OPS_REPS = 20
+OPS_QUERIES = 16
+
+
+def _bmp_frames(imgs, rid0: int) -> bytes:
+    """[n, h, w, 3] uint8 images (w * 3 % 4 == 0) -> the batch route's
+    body: per image [u64 LE record id][u32 LE length][24-bit bottom-up
+    BMP], record ids rid0, rid0 + 1, ..., built in one numpy array."""
+    import numpy as np
+
+    n, h, w, _ = imgs.shape
+    px = h * w * 3
+    frame = np.empty((n, 12 + 54 + px), np.uint8)
+    frame[:, :8] = np.arange(rid0, rid0 + n, dtype="<u8").view(np.uint8).reshape(n, 8)
+    frame[:, 8:12] = np.frombuffer(struct.pack("<I", 54 + px), np.uint8)
+    frame[:, 12:66] = np.frombuffer(
+        struct.pack("<2sIHHI", b"BM", 54 + px, 0, 0, 54)
+        + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, px, 2835, 2835, 0, 0), np.uint8)
+    frame[:, 66:] = imgs[:, ::-1, :, ::-1].reshape(n, px)
+    return frame.tobytes()
+
+
+def _children(pid: int) -> list[int]:
+    """Live child processes of pid (from /proc; zombies left out)."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[1]) == pid and fields[0] != "Z":
+            out.append(int(name))
+    return sorted(out)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _ServerProc:
+    """`python -m ucfp_tpu_torch.server` in a subprocess, its JSON log
+    lines in a file."""
+
+    def __init__(self, args: list, env: dict, log_path: str):
+        self.log_path = log_path
+        self.port = int(args[args.index("--bind") + 1].rpartition(":")[2])
+        with open(log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "ucfp_tpu_torch.server", *args], cwd=HERE,
+                env={**os.environ, **env}, stdout=log, stderr=log)
+
+    def lines(self) -> list:
+        out = []
+        with open(self.log_path) as f:
+            for ln in f:
+                if ln.startswith("{"):
+                    try:
+                        out.append(json.loads(ln))
+                    except ValueError:
+                        pass
+        return out
+
+    def wait_log(self, msg: str, timeout: float) -> dict:
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            hit = [ln for ln in self.lines() if ln.get("msg") == msg]
+            if hit:
+                return hit[0]
+            check(self.proc.poll() is None, f"server exited: {open(self.log_path).read()[-3000:]}")
+            time.sleep(0.05)
+        raise RuntimeError(f"check failed: no {msg!r} log line in {timeout} s")
+
+    def wait_healthy(self, timeout: float = 300.0) -> None:
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            check(self.proc.poll() is None, f"server exited: {open(self.log_path).read()[-3000:]}")
+            try:
+                c = http.client.HTTPConnection("127.0.0.1", self.port, timeout=5)
+                c.request("GET", "/healthz")
+                if c.getresponse().status == 200:
+                    return
+            except OSError:
+                pass
+            time.sleep(0.1)
+        raise RuntimeError("check failed: server never became healthy")
+
+    def stop(self, timeout: float = 60.0) -> int:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        return self.proc.returncode
+
+
+def _ops_queries(torch, backend, rids, k=10):
+    """OPS_QUERIES pHash fingerprints and vectors of stored rows -> the
+    request bodies of one fingerprint_hex and one vector query each."""
+    import numpy as np
+
+    out = []
+    for rid in rids:
+        row = backend.get_record(0, rid)
+        if row["algorithm"] == PHASH:
+            out.append({"tenant_id": 0, "modality": "image", "k": k, "algorithm": "phash",
+                        "fingerprint_hex": row["fingerprint"].hex()})
+        else:
+            out.append({"tenant_id": 0, "modality": "image", "k": k,
+                        "vector": [float(v) for v in np.asarray(row["embedding"])]})
+    return out
+
+
+def _plain_answers(torch, backend, queries):
+    """Each query's hits on the plain path over the backend's device tensors."""
+    out = []
+    for q in queries:
+        if "fingerprint_hex" in q:
+            out.append(_plain_hamming_hits(torch, backend, [q["fingerprint_hex"]], q["k"])[0])
+        else:
+            out.append(_plain_cosine_hits(torch, backend, [q["vector"]], q["k"])[0])
+    return out
+
+
+# 16(a)'s query clients, a process of their own (stdlib only): argv[1] is
+# a JSON file naming the port, token, queries, each query's wanted hits,
+# the client count, the pause between queries and three paths: a file
+# made once every client has an answer ("ready"), one whose existence
+# stops them ("stop"), and the output ("out"): each query's
+# (start, end) on the monotonic clock, which the parent shares, and the
+# answers that differ from the wanted ones.
+_OPS_CLIENTS_SRC = r"""
+import http.client, json, os, sys, threading, time
+
+cfg = json.load(open(sys.argv[1]))
+bodies = [json.dumps(q).encode() for q in cfg["queries"]]
+log, bad = [], []
+
+
+def client(i):
+    try:
+        queries(i)
+    except Exception as e:
+        bad.append(["error", i, repr(e)])
+
+
+def queries(i):
+    conn = http.client.HTTPConnection("127.0.0.1", cfg["port"], timeout=900)
+    j = i
+    while not os.path.exists(cfg["stop"]):
+        n = j % len(bodies)
+        a = time.monotonic()
+        conn.request("POST", "/v1/query", body=bodies[n],
+                     headers={"authorization": "Bearer " + cfg["token"]})
+        resp = conn.getresponse()
+        data = resp.read()
+        b = time.monotonic()
+        res = json.loads(data) if data else None
+        if resp.status != 200 or [[h["record_id"], h["score"]]
+                                  for h in res["hits"]] != cfg["want"][n]:
+            bad.append([resp.status, n, res])
+        log.append([a, b])
+        j += 1
+        time.sleep(cfg["think_s"])
+
+
+threads = [threading.Thread(target=client, args=(i,), daemon=True)
+           for i in range(cfg["clients"])]
+for t in threads:
+    t.start()
+while len(log) < cfg["clients"] and not os.path.exists(cfg["stop"]):
+    time.sleep(0.005)
+open(cfg["ready"], "w").close()
+for t in threads:
+    t.join()
+with open(cfg["out"], "w") as f:
+    json.dump({"log": log, "bad": bad[:5], "n_bad": len(bad)}, f)
+"""
+
+
+def _ops_compaction_store(torch, dev, tmp: str) -> dict:
+    """16(a)'s store: bulk-loaded, then a quarter of each kind superseded
+    by upserts and 5% deleted."""
+    from ucfp_tpu_torch.core import Modality, Record
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+
+    d = os.path.join(tmp, "compact")
+    backend = EmbeddedBackend(d, device=dev)
+    t0 = time.perf_counter()
+    _bulk_load(torch, backend, OPS_PHASH_ROWS, 0, OPS_VEC_ROWS, DIM, 161, dev,
+               vec_fp_bytes=8)
+    load_s = time.perf_counter() - t0
+    # churn: a quarter of each kind superseded by upserts, 5% deleted
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(162)
+    vbase = 2 * 10**8
+    sup_p = torch.randperm(OPS_PHASH_ROWS, generator=g, device=dev)[:OPS_PHASH_ROWS // 4]
+    sup_p = sup_p.cpu().numpy()
+    raw = torch.randint(0, 256, (len(sup_p), 8), generator=g, device=dev,
+                        dtype=torch.uint8).cpu().numpy()
+    for lo in range(0, len(sup_p), 1 << 15):
+        asyncio.run(backend.upsert([
+            Record(0, int(sup_p[i]), Modality.IMAGE, PHASH, raw[i].tobytes())
+            for i in range(lo, min(lo + (1 << 15), len(sup_p)))]))
+    sup_v = torch.randperm(OPS_VEC_ROWS, generator=g, device=dev)[:OPS_VEC_ROWS // 4]
+    sup_v = sup_v.cpu().numpy()
+    mat = torch.randn((len(sup_v), DIM), generator=g, device=dev).cpu().numpy()
+    vfp = torch.randint(0, 256, (len(sup_v), 8), generator=g, device=dev,
+                        dtype=torch.uint8).cpu().numpy()
+    for lo in range(0, len(sup_v), 1 << 13):
+        asyncio.run(backend.upsert([
+            Record(0, vbase + int(sup_v[i]), Modality.IMAGE, SEM, vfp[i].tobytes(),
+                   embedding=mat[i], model_id="smoke")
+            for i in range(lo, min(lo + (1 << 13), len(sup_v)))]))
+    del_p = torch.randperm(OPS_PHASH_ROWS, generator=g, device=dev)[:OPS_PHASH_ROWS // 20]
+    del_v = torch.randperm(OPS_VEC_ROWS, generator=g, device=dev)[:OPS_VEC_ROWS // 20]
+    deleted = set(del_p.cpu().numpy().tolist()) | {vbase + int(r) for r in del_v.cpu().numpy()}
+    asyncio.run(backend.delete(0, sorted(deleted)))
+    churn_s = time.perf_counter() - t0
+    n_records = len(backend._records)
+    check(n_records == OPS_PHASH_ROWS + OPS_VEC_ROWS - len(deleted), "churned store size")
+    return {"backend": backend, "dir": d, "load_s": load_s, "churn_s": churn_s,
+            "sup_p": sup_p, "sup_v": sup_v, "deleted": deleted, "n_records": n_records,
+            "vbase": vbase}
+
+
+def _ops_compaction(torch, dev, prep: dict, tmp: str) -> dict:
+    """16(a): compaction under query load, the reopen, autocompaction."""
+    import numpy as np
+
+    from ucfp_tpu_torch.core import Modality, Record
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+
+    backend, d, deleted, vbase = prep["backend"], prep["dir"], prep["deleted"], prep["vbase"]
+    sup_p, sup_v, n_records = prep["sup_p"], prep["sup_v"], prep["n_records"]
+    load_s, churn_s = prep["load_s"], prep["churn_s"]
+    # queries: superseded rows (their new values at rank 1), not deleted
+    live_p = [int(r) for r in sup_p if int(r) not in deleted][:OPS_QUERIES // 2]
+    live_v = [vbase + int(r) for r in sup_v if vbase + int(r) not in deleted][:OPS_QUERIES // 2]
+    queries = _ops_queries(torch, backend, live_p + live_v)
+    exact = _ops_queries(torch, backend, live_p[:4] + live_v[:4], k=32)  # above the fused k
+    token = "ops-token"
+    srv = _ServerThread(_bare_state(backend, token))
+    try:
+        call = _Client(srv.port, token)
+        for q in queries[:1] + queries[-1:]:  # the device caches' first upload
+            check(call("POST", "/v1/query", q)[0] == 200, "first queries")
+        want = _plain_answers(torch, backend, queries)
+        for w, rid in zip(want, live_p + live_v):
+            check(w[0][0] == rid, f"stored row {rid} at rank 1 on the plain path")
+        exact_before = [call("POST", "/v1/query", q)[1]["hits"] for q in exact]
+        sample = sorted(backend._records)[:: max(1, n_records // 2048)]
+        rows_before = {key: backend._records[key] for key in sample}
+
+        # the clients run in a process of their own, so the compaction
+        # shares the server's process (its event loop and to_thread
+        # pool), not the harness's GIL
+        files = {k: os.path.join(tmp, f"ops-clients.{k}") for k in ("cfg", "ready", "stop",
+                                                                     "out")}
+        with open(files["cfg"], "w") as f:
+            json.dump({"port": srv.port, "token": token, "queries": queries,
+                       "want": [[[int(r), float(sc)] for r, sc in w] for w in want],
+                       "clients": OPS_CLIENTS, "think_s": OPS_THINK_S, **files}, f)
+        clients = subprocess.Popen([sys.executable, "-c", _OPS_CLIENTS_SRC, files["cfg"]])
+        try:
+            deadline = time.monotonic() + 120
+            while not os.path.exists(files["ready"]):
+                check(clients.poll() is None and time.monotonic() < deadline,
+                      "the query clients started")
+                time.sleep(0.02)
+            time.sleep(OPS_WINDOW_S)
+            c0 = time.monotonic()
+            st, res, compact_ms = call("POST", "/v1/admin/compact")
+            c1 = time.monotonic()
+            time.sleep(OPS_WINDOW_S)
+            open(files["stop"], "w").close()
+            check(clients.wait(120) == 0, "the query clients exited 0")
+        finally:
+            if clients.poll() is None:
+                clients.kill()
+                clients.wait(30)
+        with open(files["out"]) as f:
+            got = json.load(f)
+        log, bad = got["log"], got["bad"]
+        check(st == 200 and res["compacted"] is True
+              and res["wal_bytes_after"] < res["wal_bytes_before"], f"compaction: {st} {res}")
+        check(not bad, f"{got['n_bad']} of {len(log)} answers differ from the plain path: "
+              f"{bad[:2]}")
+        during = [(b - a) * 1e3 for a, b in log if a < c1 and b > c0]
+        outside = [(b - a) * 1e3 for a, b in log if not (a < c1 and b > c0)]
+        check(len(during) >= OPS_CLIENTS and len(outside) >= OPS_CLIENTS,
+              f"queries answered during the compaction ({len(during)}) and outside it")
+        check(backend._wal_size() == res["wal_bytes_after"]
+              and backend._wal_floor == res["wal_bytes_after"], "the log's size and floor")
+    finally:
+        srv.stop()
+    backend.close()
+
+    # the compacted directory reopened: the same rows and answers
+    t0 = time.perf_counter()
+    b2 = EmbeddedBackend(d, device=dev)
+    reopen_s = time.perf_counter() - t0
+    try:
+        check(len(b2._records) == n_records and all(
+            b2._records[key]["fingerprint"] == row["fingerprint"]
+            and (row["embedding"] is None) == (b2._records[key]["embedding"] is None)
+            and (row["embedding"] is None or np.array_equal(
+                np.asarray(row["embedding"], np.float32),
+                np.asarray(b2._records[key]["embedding"], np.float32)))
+            for key, row in rows_before.items()), "reopened rows == the rows before")
+        srv2 = _ServerThread(_bare_state(b2, token))
+        try:
+            call2 = _Client(srv2.port, token)
+            got = [call2("POST", "/v1/query", q) for q in queries]
+            want2 = _plain_answers(torch, b2, queries)
+            check(all(st == 200 and _hit_rows(r["hits"]) == w
+                      for (st, r, _), w in zip(got, want2)),
+                  "reopened: served hits == the plain path")
+            check(all(_hit_rows(r["hits"])[0] == w[0] for (_, r, _), w in zip(got, want)),
+                  "reopened: each stored row still at rank 1")
+            # the exact path (k = 32): the same ranked scores; the same
+            # records except where a tie crosses the cut
+            for q, before in zip(exact, exact_before):
+                after = call2("POST", "/v1/query", q)[1]["hits"]
+                sb = [h["score"] for h in before]
+                sa = [h["score"] for h in after]
+                cut = sb[-1]
+                check(len(sa) == len(sb) and all(abs(x - y) <= 1e-6 for x, y in zip(sa, sb)),
+                      "reopened: exact scores == before (within 1e-6)")
+                check([h["record_id"] for h in before if h["score"] > cut + 1e-6]
+                      == [h["record_id"] for h in after if h["score"] > cut + 1e-6],
+                      "reopened: exact hits above the cut == before")
+        finally:
+            srv2.stop()
+    finally:
+        b2.close()
+
+    # autocompaction: past UCFP_AUTOCOMPACT_MB and twice the last snapshot
+    auto = EmbeddedBackend(os.path.join(tmp, "auto"), device=dev)
+    fired = []
+    orig = auto.compact
+
+    def counted():
+        fired.append((auto._wal_size(), auto._wal_floor))
+        orig()
+
+    auto.compact = counted
+    try:
+        with _environ(UCFP_AUTOCOMPACT_MB=str(OPS_AUTO_MB)):
+            g = torch.Generator(device=dev).manual_seed(163)
+            sizes = []
+            for rnd in range(6):
+                raw = torch.randint(0, 256, (OPS_AUTO_ROWS, 8), generator=g, device=dev,
+                                    dtype=torch.uint8).cpu().numpy()
+                rows = [r.tobytes() for r in raw]
+                if rnd == 0:
+                    asyncio.run(auto.upsert_fingerprint_batch(
+                        0, PHASH, list(range(OPS_AUTO_ROWS)), rows))
+                else:  # every row superseded: the log grows, the store does not
+                    asyncio.run(auto.upsert([Record(0, i, Modality.IMAGE, PHASH, fp)
+                                             for i, fp in enumerate(rows)]))
+                sizes.append(auto._wal_size())
+                if len(fired) >= 2:
+                    break
+        limit = OPS_AUTO_MB * 2**20
+        check(len(fired) >= 2 and all(sz > limit and sz > 2 * max(fl, 1) for sz, fl in fired),
+              f"autocompaction fired past {OPS_AUTO_MB} MiB and a doubling: {fired} {sizes}")
+        hexes = [rows[i].hex() for i in (0, 1, 2)]
+        hits = asyncio.run(auto.knn_fingerprint_batch(
+            0, PHASH, [bytes.fromhex(h) for h in hexes], 10))
+        check([[(h.record_id, h.score) for h in hs] for hs in hits]
+              == _plain_hamming_hits(torch, auto, hexes, 10)
+              and [hs[0].record_id for hs in hits] == [0, 1, 2],
+              "after autocompaction: hits == the plain path, each row at rank 1")
+    finally:
+        auto.close()
+    return {
+        "rows": {"phash": OPS_PHASH_ROWS, "vectors": OPS_VEC_ROWS, "dim": DIM,
+                 "superseded": len(sup_p) + len(sup_v), "deleted": len(deleted),
+                 "live": n_records},
+        "load_s": load_s, "churn_s": churn_s, "reopen_s": reopen_s,
+        "wal_bytes_before": res["wal_bytes_before"], "wal_bytes_after": res["wal_bytes_after"],
+        "compact_s": compact_ms / 1e3, "compact_window_s": c1 - c0,
+        "query_p50_ms_during": statistics.median(during),
+        "query_p50_ms_outside": statistics.median(outside),
+        "queries_during": len(during), "queries_outside": len(outside),
+        "autocompactions": [{"wal_bytes": sz, "floor": fl} for sz, fl in fired],
+    }
+
+
+def _ops_coalesce_bodies(torch, dev) -> dict:
+    """16(b)'s request bodies (random images drawn on the card from a
+    seed) and each image's pHash on the plain path: the same decode, the
+    host resize and the hash on the CPU."""
+    from ucfp_tpu_torch.modality import image as imod
+    from ucfp_tpu_torch.server import handlers as th
+
+    g = torch.Generator(device=dev).manual_seed(164)
+    bodies, plain = [], {}
+    for c in range(COALESCE_CLIENTS):
+        imgs = torch.randint(0, 256, (COALESCE_IMAGES, COALESCE_SIDE, COALESCE_SIDE, 3),
+                             generator=g, device=dev, dtype=torch.uint8).cpu().numpy()
+        body = _bmp_frames(imgs, c * COALESCE_IMAGES)
+        bodies.append(body)
+        code, rids, gray = imod.decode_gray_batch(body, 1024, imod.PreprocessConfig())
+        check(code == 0, "the batch decodes whole")
+        n, h, w = gray.shape
+        plain.update(zip(rids, th._hash_image_group("phash", gray, h, w, n,
+                                                    torch.device("cpu"))))
+    return {"bodies": bodies, "plain": plain}
+
+
+def _ops_coalesce(torch, dev, prep: dict, tmp: str) -> dict:
+    """16(b): bulk pHash ingest from COALESCE_CLIENTS clients, coalescing
+    off and at UCFP_INGEST_COALESCE_MS=2; fingerprints equal each other
+    and the plain path's."""
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.ops import imagehash
+
+    bodies, plain = prep["bodies"], prep["plain"]
+    backend = EmbeddedBackend(os.path.join(tmp, "coalesce"), device=dev)
+    launches = []
+    orig = imagehash.single_hash_kernel_gray
+
+    def counted(gray, h, w, algo, device=None):
+        launches.append((gray.shape[0], str(device)))
+        return orig(gray, h, w, algo, device=device)
+
+    imagehash.single_hash_kernel_gray = counted
+    out = {}
+    try:
+        for name, tenant, env in (("off", 11, {}),
+                                  ("coalesced", 12, {"UCFP_INGEST_COALESCE_MS": "2"})):
+            with _environ(UCFP_BODY_LIMIT_MB="64", UCFP_READ_TIMEOUT_SECS="900", **env):
+                srv = _ServerThread(_bare_state(backend, "ops-token"))
+            try:
+                del launches[:]
+                fps = {}
+
+                def client(c, fps=fps, srv=srv, tenant=tenant):
+                    st, res, _ = _Client(srv.port, "ops-token")(
+                        "POST", f"/v1/ingest/image/batch/{tenant}", bodies[c],
+                        "algorithm=phash")
+                    check(st == 201 and res["count"] == COALESCE_IMAGES, f"bulk ingest: {st}")
+                    fps.update({r["record_id"]: r["fingerprint_hex"] for r in res["records"]})
+
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(COALESCE_CLIENTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(600)
+                wall = time.perf_counter() - t0
+                info = _Client(srv.port, "ops-token")("GET", "/v1/info")[1]
+            finally:
+                srv.stop()
+            n = COALESCE_CLIENTS * COALESCE_IMAGES
+            check(len(fps) == n and all(bytes.fromhex(fps[r]) == plain[r] for r in plain),
+                  f"{name}: fingerprints == the plain path's")
+            check(all(dv.startswith("cuda") for _, dv in launches), f"{name}: hashed on the card")
+            out[name] = {"images_per_s": n / wall, "wall_s": wall,
+                         "launches": len(launches), "rows": [r for r, _ in launches],
+                         "flushes": info["ingest_coalesce_flushes"],
+                         "groups": info["ingest_coalesce_groups"]}
+    finally:
+        imagehash.single_hash_kernel_gray = orig
+        backend.close()
+    on = out["coalesced"]
+    check(out["off"]["flushes"] == 0 and out["off"]["launches"] == COALESCE_CLIENTS
+          and on["flushes"] == on["launches"] <= COALESCE_CLIENTS
+          and on["groups"] == COALESCE_CLIENTS
+          and all(r & (r - 1) == 0 for r in on["rows"]),
+          f"coalesced: every group in a flush, one launch a flush padded to a power of "
+          f"two: {out}")
+    return out
+
+
+def _ops_small_store(torch, dev, d: str) -> dict:
+    """The (c)-(f) store: OPS_SMALL_ROWS pHash rows and OPS_SMALL_ROWS x
+    768 vectors on the card, its queries and their single-process answers."""
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+
+    backend = EmbeddedBackend(d, device=dev)
+    try:
+        _bulk_load(torch, backend, OPS_SMALL_ROWS, 0, OPS_SMALL_ROWS, OPS_SMALL_DIM, 165,
+                   dev, vec_fp_bytes=8)
+        step = OPS_SMALL_ROWS // (OPS_QUERIES // 2)
+        rids = ([i * step for i in range(OPS_QUERIES // 2)]
+                + [2 * 10**8 + i * step + 1 for i in range(OPS_QUERIES // 2)])
+        queries = _ops_queries(torch, backend, rids)
+        srv = _ServerThread(_bare_state(backend, "ops-token"))
+        try:
+            c = _Client(srv.port, "ops-token")
+            single = [c("POST", "/v1/query", q)[1]["hits"] for q in queries]
+            check(all(_hit_rows(h) == w for h, w in zip(
+                single, _plain_answers(torch, backend, queries))),
+                "single process: served == the plain path")
+        finally:
+            srv.stop()
+    finally:
+        backend.close()
+    return {"queries": queries, "single": single}
+
+
+def _ops_start_servers(dev, dirs: dict, tmp: str) -> dict:
+    """The phase's server subprocesses, each on its own copy of the small
+    store, started together so that they boot while the in-process stores
+    load: (c)'s server with the warm-up and UCFP_PROFILER_PORT ("warm1")
+    and without the warm-up ("warm0"), and (d)'s owner with 2 workers
+    ("stack")."""
+    procs = {}
+    for name, extra, env in (
+            ("warm1", [], {"UCFP_WARMUP": "1", "UCFP_PROFILER_PORT": str(_free_port())}),
+            ("warm0", [], {"UCFP_WARMUP": "0"}),
+            ("stack", ["--workers", "2"], {"UCFP_WARMUP": "0"})):
+        procs[name] = _ServerProc(
+            ["--bind", f"127.0.0.1:{_free_port()}", "--token", "ops-token",
+             "--data-dir", dirs[name], "--device", dev.type, *extra],
+            {"UCFP_LOG": "info", "UCFP_SHARD": "off", **env},
+            os.path.join(tmp, f"{name}.log"))
+        procs[name].t_start = time.perf_counter()
+        procs[name].env = env
+    return procs
+
+
+def _ops_warmup_trace(torch, dev, procs: dict, small: dict, tmp: str) -> dict:
+    """16(c) and the UCFP_PROFILER_PORT half of (f): the first query's
+    latency on the server with the warm-up (after it finished) and on the
+    one without; a trace around a few queries."""
+    out = {}
+    q = small["queries"][0]
+    for name in ("warm1", "warm0"):
+        proc = procs[name]
+        proc.wait_healthy()
+        healthy_s = time.perf_counter() - proc.t_start
+        done = proc.wait_log("warmup complete", 300) if name == "warm1" else None
+        c = _Client(proc.port, "ops-token")
+        st, res, first_ms = c("POST", "/v1/query", q)
+        check(st == 200 and res["hits"] == small["single"][0], "first query's answer")
+        st, res, second_ms = c("POST", "/v1/query", q)
+        c.conn.close()
+        out[name] = {"first_query_ms": first_ms, "second_query_ms": second_ms,
+                     "warmup_s": done and done["secs"], "kernels": done and done["kernels"],
+                     "start_to_healthy_s": healthy_s}
+        if name == "warm1":
+            stop = threading.Event()
+
+            def traffic():
+                cc = _Client(proc.port, "ops-token")
+                while not stop.is_set():
+                    for qq in small["queries"]:
+                        cc("POST", "/v1/query", qq)
+
+            t = threading.Thread(target=traffic)
+            t.start()
+            pc = http.client.HTTPConnection(
+                "127.0.0.1", int(proc.env["UCFP_PROFILER_PORT"]), timeout=300)
+            pc.request("POST", f"/trace?duration_ms=1000&dir={tmp}/traces")
+            resp = pc.getresponse()
+            body = json.loads(resp.read())
+            stop.set()
+            t.join(60)
+            check(resp.status == 200, f"trace endpoint: {resp.status} {body}")
+            with open(body["trace"]) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+            named = [k for k in kernels if "select" in k or "cells_kernel" in k]
+            check(named, f"the trace names a port kernel: {kernels[:20]}")
+            out["trace"] = {"events": body["events"], "kernels": len(kernels),
+                            "port_kernels": named[:6]}
+        check(proc.stop() == 0, f"{name}: the server subprocess exits 0 on SIGTERM")
+    return out
+
+
+def _ops_multiworker(torch, dev, stack, small: dict, tmp: str) -> dict:
+    """16(d): an owner on the card and 2 workers on one port."""
+    from ucfp_tpu_torch.server import handlers as th
+
+    port = stack.port
+    try:
+        stack.wait_healthy()
+        healthy_s = time.perf_counter() - stack.t_start
+        workers = _children(stack.proc.pid)
+        check(len(workers) == 2, f"two workers: {workers}")
+        c = _Client(port, "ops-token")
+        got = [c("POST", "/v1/query", q)[1]["hits"] for q in small["queries"]]
+        check(got == small["single"], "through a worker: answers == the single process's")
+        # the workers hash on the CPU: == the card's hashes of the same images
+        g = torch.Generator(device=dev).manual_seed(166)
+        body = _bmp_frames(torch.randint(0, 256, (64, 64, 64, 3), generator=g, device=dev,
+                                         dtype=torch.uint8).cpu().numpy(), 0)
+        st, res, _ = c("POST", "/v1/ingest/image/batch/6", body, "algorithm=phash")
+        from ucfp_tpu_torch.modality import image as imod
+
+        _, rids, gray = imod.decode_gray_batch(body, 1024, imod.PreprocessConfig())
+        card = th._hash_image_group("phash", gray, 64, 64, 64, dev)
+        check(st == 201 and [bytes.fromhex(r["fingerprint_hex"]) for r in res["records"]]
+              == card, "worker (CPU) pHash == the card's")
+        # an issued key, and ingest + query + compact at once
+        st, res, _ = c("POST", "/v1/admin/keys", {"tenant_id": 5})
+        check(st == 201, f"issue a key: {st}")
+        issued = res["token"]
+        bad, compacts = [], []
+
+        def ingest(t):
+            cc = _Client(port, issued)
+            for i in range(24):
+                st, _, _ = cc("POST", f"/v1/ingest/text/5/{t * 100 + i}",
+                              f"{PANGRAM} {t} {i}".encode())
+                if st != 201:
+                    bad.append(("ingest", st))
+
+        def query(t):
+            cc = _Client(port, "ops-token")
+            for i in range(24):
+                j = (t + i) % len(small["queries"])
+                st, res, _ = cc("POST", "/v1/query", small["queries"][j])
+                if st != 200 or res["hits"] != small["single"][j]:
+                    bad.append(("query", st))
+
+        def compact():
+            cc = _Client(port, "ops-token")
+            for _ in range(3):
+                st, res, ms = cc("POST", "/v1/admin/compact")
+                compacts.append((st, ms))
+
+        threads = ([threading.Thread(target=ingest, args=(t,)) for t in range(3)]
+                   + [threading.Thread(target=query, args=(t,)) for t in range(3)]
+                   + [threading.Thread(target=compact)])
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        mixed_s = time.perf_counter() - t0
+        check(not bad and [s for s, _ in compacts] == [200] * 3,
+              f"concurrent ingest, query and compact: {bad[:3]} {compacts}")
+        st, res, _ = c("POST", "/v1/query", {"tenant_id": 5, "modality": "text", "k": 100,
+                                             "terms": ["quick", "fox"]})
+        check(st == 200 and len(res["hits"]) == 72, f"every ingested document found: {st}")
+        # a worker killed: the service answers on, the worker restarts
+        serving = sum(ln.get("msg") == "serving" for ln in stack.lines())
+        os.kill(workers[0], signal.SIGKILL)
+        ok = 0
+        for i in range(8):
+            try:
+                ok += _Client(port, "ops-token")("POST", "/v1/query",
+                                                 small["queries"][i])[0] == 200
+            except OSError:
+                pass
+        check(ok >= 6, f"answers after a worker's SIGKILL: {ok} of 8")
+        # the supervisor restarts it, and the new worker serves
+        t_kill = time.perf_counter()
+        deadline = time.time() + 120
+        while time.time() < deadline and sum(
+                ln.get("msg") == "serving" for ln in stack.lines()) <= serving:
+            time.sleep(0.05)
+        restart_s = time.perf_counter() - t_kill
+        restarted = _children(stack.proc.pid)
+        check(len(restarted) == 2 and workers[0] not in restarted
+              and sum(ln.get("msg") == "serving" for ln in stack.lines()) == serving + 1,
+              f"the worker restarted and serves: {restarted}")
+        got = [_Client(port, "ops-token")("POST", "/v1/query", q)[1]["hits"]
+               for q in small["queries"]]
+        check(got == small["single"], "after the restart: answers == the single process's")
+    finally:
+        rc = stack.stop()
+    check(rc == 0, f"the stack exits 0 on SIGTERM: {rc}")
+    stopped = [ln for ln in stack.lines() if ln.get("msg") == "stopped"]
+    owner = [ln for ln in stopped if "workers" in ln]
+    worker = [ln for ln in stopped if "workers" not in ln]
+    check(len(owner) == 1 and owner[0]["kernel_launches"] > 0
+          and len(worker) == 2 and all(ln["kernel_launches"] == 0 for ln in worker),
+          f"kernel launches: the owner's > 0, both live workers' 0: {stopped}")
+    return {"owner_kernel_launches": owner[0]["kernel_launches"],
+            "worker_kernel_launches": [ln["kernel_launches"] for ln in worker],
+            "mixed_s": mixed_s, "compact_ms": [ms for _, ms in compacts],
+            "restart_s": restart_s, "start_to_healthy_s": healthy_s}
+
+
+def _ops_native(torch, dev, d: str, small: dict) -> dict:
+    """16(e): the same routes through the native front and the asyncio
+    front on one store; the p50 of one pHash fingerprint_hex on each."""
+    from ucfp_tpu_torch.index.embedded import EmbeddedBackend
+    from ucfp_tpu_torch.server.app import build_server
+    from ucfp_tpu_torch.server.nativehttp import NativeHttpBridge
+
+    backend = EmbeddedBackend(d, device=dev)
+    asy = _ServerThread(_bare_state(backend, "ops-token"))
+    loop = asyncio.new_event_loop()
+    native = build_server(_bare_state(backend, "ops-token"), timeout_secs=900.0)
+    bridge_box = {}
+
+    def serve():
+        asyncio.set_event_loop(loop)
+
+        async def go():
+            bridge_box["b"] = NativeHttpBridge(native, "127.0.0.1", 0)
+            await bridge_box["b"].serve_forever()
+
+        try:
+            loop.run_until_complete(go())
+        except asyncio.CancelledError:
+            pass
+
+    nt = threading.Thread(target=serve, daemon=True)
+    nt.start()
+    try:
+        deadline = time.time() + 120
+        while "b" not in bridge_box and time.time() < deadline:
+            time.sleep(0.05)
+        check("b" in bridge_box, "native front started")
+        fronts = (_Http(asy.port), _Http(bridge_box["b"].port))
+        routes = [("GET", "/healthz", b"", None), ("GET", "/v1/algorithms", b"", None),
+                  *(("POST", "/v1/query", q, "ops-token") for q in small["queries"]),
+                  ("POST", "/v1/ingest/text/0/900000001", PANGRAM.encode(), "ops-token"),
+                  ("GET", "/v1/records/0/900000001", b"", "ops-token"),
+                  ("POST", "/v1/ingest/image/0/900000002", _fixed_png(10, 64, 64), "ops-token"),
+                  ("POST", "/v1/query", {"tenant_id": 0, "modality": "text",
+                                         "terms": ["quick", "fox"]}, "ops-token"),
+                  ("POST", "/v1/query", b"{bad json", "ops-token"),
+                  ("POST", "/v1/query", {"tenant_id": 0}, None),
+                  ("GET", "/nope", b"", None)]
+        for method, path, body, tok in routes:
+            a = fronts[0](method, path, body, token=tok)
+            n = fronts[1](method, path, body, token=tok)
+            check(a[0] == n[0] and a[2] == n[2], f"{method} {path}: asyncio {a[0]} {a[2]} "
+                                                  f"!= native {n[0]} {n[2]}")
+        lat = ([], [])
+        q = small["queries"][0]
+        for i in range(2 * OPS_REPS + 2):
+            for side in ((0, 1) if i % 2 else (1, 0)):
+                st, _, res, ms = fronts[side]("POST", "/v1/query", q, token="ops-token")
+                check(st == 200 and res["hits"] == small["single"][0], "timed query")
+                if i >= 2:
+                    lat[side].append(ms)
+        return {"routes": len(routes), "p50_ms_asyncio": statistics.median(lat[0]),
+                "p50_ms_native": statistics.median(lat[1])}
+    finally:
+        if "b" in bridge_box:
+            bridge_box["b"].stop()
+        nt.join(60)
+        asy.stop()
+        backend.close()
+
+
+def phase_ops(torch, dev) -> dict:
+    """Phase 16: compaction and autocompaction under query load, ingest
+    coalescing, boot warm-up, the multi-worker front with its owner on
+    the card, the native HTTP front, and the trace knobs. The server
+    subprocesses boot while the in-process stores load; each part is
+    then measured alone."""
+    import shutil
+
+    from ucfp_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ucfp-smoke-ops-")
+    procs = {}
+    try:
+        small_dir = os.path.join(tmp, "small")
+        small = _ops_small_store(torch, dev, small_dir)
+        dirs = {name: os.path.join(tmp, name) for name in ("warm1", "warm0", "stack")}
+        for d in dirs.values():
+            shutil.copytree(small_dir, d)
+        procs = _ops_start_servers(dev, dirs, tmp)
+        t0 = time.perf_counter()
+        prep_a = _ops_compaction_store(torch, dev, tmp)
+        prep_b = _ops_coalesce_bodies(torch, dev)
+        prep_s = time.perf_counter() - t0
+        # ---- the main path: launch counts are read over exactly this block
+        reset_counts()
+        parts = {}
+
+        def part(name, fn, *args):
+            t0 = time.perf_counter()
+            res = fn(torch, dev, *args)
+            parts[name] = time.perf_counter() - t0
+            say(f"ops: ({name}) {parts[name]:.1f} s: " + json.dumps(res)[:1500])
+            return res
+
+        warm = part("warmup", _ops_warmup_trace, procs, small, tmp)
+        mw = part("multiworker", _ops_multiworker, procs["stack"], small, tmp)
+        comp = part("compaction", _ops_compaction, prep_a, tmp)
+        coal = part("coalescing", _ops_coalesce, prep_b, tmp)
+        nat = part("native", _ops_native, small_dir, small)
+        # UCFP_PROFILE_DIR: the bench's run under torch.profiler, one key
+        t0 = time.perf_counter()
+        prof_dir = os.path.join(tmp, "bench-trace")
+        with _environ(UCFP_BENCH_ONLY="text_minhash", UCFP_PROFILE_DIR=prof_dir):
+            _, last = bench.run(dev)
+        traces = os.listdir(prof_dir)
+        check(len(traces) == 1 and os.path.getsize(os.path.join(prof_dir, traces[0])) > 0
+              and last["extra"]["text_minhash_docs_per_sec"] > 0,
+              f"UCFP_PROFILE_DIR: a bench trace written ({traces})")
+        parts["bench_trace"] = time.perf_counter() - t0
+        launches = read_counts()
+        # ---- end of the main path
+        check(all(launches[name] > 0 for name in ("scores_topk_fused_batched",
+                                                   "hamming_topk_fused_batched",
+                                                   "select_topk")),
+              f"every kernel of the phase's path launched: {launches}")
+        out = {"compaction": comp, "coalescing": coal, "warmup": warm, "multiworker": mw,
+               "native": nat,
+               "bench_trace_bytes": os.path.getsize(os.path.join(prof_dir, traces[0])),
+               "prep_s": prep_s, "parts_s": parts, "launches": launches,
+               "phase_s": time.perf_counter() - t_phase}
+        say(f"ops: compaction {comp['wal_bytes_before']} -> {comp['wal_bytes_after']} bytes "
+            f"in {comp['compact_s']:.3f} s; query p50 {comp['query_p50_ms_during']:.3f} ms "
+            f"during it vs {comp['query_p50_ms_outside']:.3f} ms outside")
+        say(f"ops: bulk pHash ingest {coal['off']['images_per_s']:.1f} images/s per-request "
+            f"vs {coal['coalesced']['images_per_s']:.1f} coalesced "
+            f"({coal['coalesced']['flushes']} flushes, {coal['coalesced']['groups']} groups)")
+        say(f"ops: first query {warm['warm1']['first_query_ms']:.3f} ms after a warm-up "
+            f"of {warm['warm1']['warmup_s']} s vs {warm['warm0']['first_query_ms']:.3f} "
+            f"ms without; fingerprint_hex p50 native {nat['p50_ms_native']:.3f} ms vs "
+            f"asyncio {nat['p50_ms_asyncio']:.3f} ms")
+        say("ops: " + json.dumps(out))
+        return out
+    finally:
+        for proc in procs.values():
+            proc.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # -- the A/B timings -----------------------------------------------------------
@@ -4644,7 +5527,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="device,build,kernels,conformance,served,int8,qbatch,int4,"
-                           "int2,sketch,sharded,bench,audio,text,server")
+                           "int2,sketch,sharded,bench,audio,text,server,ops")
     args = p.parse_args()
     phases = args.phases.split(",")
 
@@ -4683,6 +5566,8 @@ def main() -> int:
         served.append(phase_text(torch, dev))
     if "server" in phases:
         served.append(phase_server(torch, dev))
+    if "ops" in phases:
+        served.append(phase_ops(torch, dev))
     if kernels is not None:
         say(json.dumps(_findings_line(kernels, served)))
     say(json.dumps({"ok": True, "device": {

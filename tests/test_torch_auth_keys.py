@@ -30,11 +30,14 @@ from ucfp_tpu_torch.server.http import Request as TRequest
 from ucfp_tpu_torch.server.ratelimit import FixedWindowLimiter as TWindows
 
 TOKEN = "svc-t0k"
-# every setting state_from_env reads; each test starts from none of them
+# every setting state_from_env and the handlers read; each test starts
+# from none of them (UCFP_WORKERS and UCFP_HTTP no longer stop a start,
+# and are unset all the same)
 ENV = ("UCFP_KEY_LOOKUP_URL", "UCFP_KEYS_FILE", "UCFP_TOKEN", "UCFP_RATELIMIT_URL",
        "UCFP_RATELIMIT_RPS", "UCFP_RATELIMIT_BURST", "UCFP_USAGE_WEBHOOK_URL",
        "UCFP_USAGE_LOG_PATH", "UCFP_DEMO_CHALLENGE_URL", "UCFP_DEMO_CHALLENGE_SECRET",
        "UCFP_DATA_DIR", "UCFP_AUTH_IP_RPM", "UCFP_DEMO_RPM", "UCFP_INGEST_COALESCE_MS",
+       "UCFP_INGEST_COALESCE_ROWS", "UCFP_INGEST_PAD", "UCFP_AUTOCOMPACT_MB",
        "UCFP_WORKERS", "UCFP_HTTP", "UCFP_DISABLED_ALGORITHMS")
 
 _MASKS = (
@@ -135,7 +138,11 @@ class ProdServers:
             async def go():
                 resp, _ = await app.handle_request(req)
                 # the usage events are fire-and-forget tasks: let them land
-                await asyncio.gather(*list(mod._usage_tasks))
+                # (this loop's: a finished task of an earlier test's loop
+                # can linger in the module's set, and gather refuses it)
+                loop = asyncio.get_running_loop()
+                await asyncio.gather(*[t for t in list(mod._usage_tasks)
+                                       if t.get_loop() is loop])
                 return resp
 
             resp = asyncio.run(go())

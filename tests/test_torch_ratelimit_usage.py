@@ -240,21 +240,46 @@ def test_state_from_env_precedence(tmp_path, monkeypatch, endpoint):
     ({"UCFP_HTTP": "native"}, "item 18"),
 ])
 def test_deferred_settings_refuse_to_start(tmp_path, monkeypatch, env, item):
-    """What this build does not serve yet stops the start with a message
-    naming the ROADMAP item, on the env and on the command line."""
+    """The settings that once stopped the start (ROADMAP queue 1 items 9
+    and 18) are served now: the state builds with each of them, on the
+    env and on the command line, and the launcher takes the path each
+    asks for (coalescing in the handlers, the multi-worker front, the
+    native front)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match=item):
-        tapp.state_from_env(data_dir=str(tmp_path), token="t", device="cpu")
+    state = tapp.state_from_env(data_dir=str(tmp_path / "db"), token="t", device="cpu")
+    try:
+        handlers = tapp.build_server(state).router.match(
+            "POST", "/v1/ingest/image/batch/0")[0].__self__
+        assert handlers._coalesce_on == ("UCFP_INGEST_COALESCE_MS" in env)
+    finally:
+        state.index.close()
     from ucfp_tpu_torch.server import __main__ as cli
+    from ucfp_tpu_torch.server import multiworker
 
-    for k in env:
-        monkeypatch.delenv(k)
+    seen = {}
+
+    async def fake_run(bind, st, native_http=None, reuse_port=False):
+        seen["run"] = native_http
+        st.index.close()
+
+    monkeypatch.setattr(cli, "run", fake_run)
+    monkeypatch.setattr(multiworker, "run_multiworker",
+                        lambda bind, n, args: seen.update(workers=n))
     flag = {"UCFP_WORKERS": ["--workers", "2"], "UCFP_HTTP": ["--native-http"]}.get(
-        next(iter(env)))
-    if flag:
+        next(iter(env)), [])
+    for argv_env in ((), tuple(env)):  # the env alone, then the flag alone
+        for k in argv_env:
+            monkeypatch.delenv(k)
+        seen.clear()
         monkeypatch.setattr(sys, "argv", ["server", "--token", "t", "--device", "cpu",
-                                          "--data-dir", str(tmp_path), *flag])
-        with pytest.raises(SystemExit, match=item):
-            cli.main()
-    assert not (tmp_path / "keys.json").exists()  # refused before opening anything
+                                          "--data-dir", str(tmp_path / "cli"),
+                                          *(flag if argv_env else [])])
+        cli.main()
+        if "UCFP_WORKERS" in env:
+            assert seen == {"workers": 2}
+        elif "UCFP_HTTP" in env:
+            # the env is read inside run (native_http=None), the flag here
+            assert seen == {"run": True if argv_env else None}
+        else:
+            assert seen == {"run": None}

@@ -252,9 +252,10 @@ def test_same_bodies_int8(tmp_path, monkeypatch, n):
 
 
 def test_later_slice_routes_answer_501(tmp_path):
-    """What is still left for a later slice (compaction) answers 501; the
-    embedding reranker, the inputs cache, the text routes and the query
-    branches that once did are served now."""
+    """No route answers 501 any more: compaction, the last one that did,
+    answers 200 with the reference's JSON; the embedding reranker, the
+    inputs cache, the text routes and the query branches that once did
+    are served too."""
     t = EmbeddedBackend(str(tmp_path), device="cpu")
     app = build_server(ServerState(index=t, api_keys=StaticSingleKey(TOKEN),
                                    rate_limit=TNoopRateLimiter(),
@@ -267,7 +268,11 @@ def test_later_slice_routes_answer_501(tmp_path):
         return asyncio.run(app.handle_request(req))[0].status
 
     try:
-        assert call("/v1/admin/compact", b"") == 501
+        req = Request("POST", "/v1/admin/compact", {}, h, b"")
+        resp = asyncio.run(app.handle_request(req))[0]
+        body = json.loads(resp.body)
+        assert resp.status == 200 and body["compacted"] is True
+        assert set(body) == {"compacted", "wal_bytes_before", "wal_bytes_after"}
         assert call("/v1/query", {"tenant_id": 0, "modality": "text",
                                   "terms": ["a"]}, {"rerank": "embedding"}) == 200
         # an input id the cache does not hold: 404, no longer 501
@@ -313,6 +318,11 @@ def test_imports_without_jax_or_reference():
     assert {"ucfp_tpu_torch.rerank.embedding", "ucfp_tpu_torch.ingest.source",
             "ucfp_tpu_torch.ingest.filesource",
             "ucfp_tpu_torch.ingest.__main__"} <= set(mods)
+    # warm-up, the multi-worker front, the native front, the trace
+    # endpoint and the sanitizer driver
+    assert {f"ucfp_tpu_torch.server.{m}" for m in (
+        "warmup", "ipc", "multiworker", "nativehttp", "profiler")} <= set(mods)
+    assert "ucfp_tpu_torch.native.sanitize" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -339,12 +349,15 @@ def test_static_scan_finds_no_reference_imports():
             "ucfp_tpu_torch/modality/providers.py",
             "ucfp_tpu_torch/server/accounts.py", "ucfp_tpu_torch/server/keystore.py",
             "ucfp_tpu_torch/server/webhooks.py", "ucfp_tpu_torch/rerank/embedding.py",
-            "ucfp_tpu_torch/ingest/filesource.py"} <= names
+            "ucfp_tpu_torch/ingest/filesource.py", "ucfp_tpu_torch/server/warmup.py",
+            "ucfp_tpu_torch/server/ipc.py", "ucfp_tpu_torch/server/multiworker.py",
+            "ucfp_tpu_torch/server/nativehttp.py", "ucfp_tpu_torch/server/profiler.py",
+            "ucfp_tpu_torch/native/sanitize.py"} <= names
     offenders = [str(p) for p in files if bad.search(p.read_text())]
     assert not offenders
     # the native text sources build from the package alone: no include
     # reaches outside ucfp_tpu_torch/native
-    for src in ("textsig.cpp", "bm25.cpp", "wb_table.h"):
+    for src in ("textsig.cpp", "bm25.cpp", "wb_table.h", "httpfront.cpp"):
         text = (REPO / "ucfp_tpu_torch" / "native" / src).read_text()
         assert not re.search(r'#include\s+"(arrow|\.\.)', text), src
 

@@ -9,10 +9,15 @@ source is newer than its library:
     plain C interface that the ops modules load with ctypes. A failed
     build raises — the device path has no fallback.
   * the host helpers (`native/*.cpp`: WAL engine, batch image decode,
-    text signatures, BM25): g++, as ucfp_tpu/native builds them, from
-    the sources in the package alone (native/xxhash.h included). A failed host build returns
-    None and the caller keeps its pure-Python path (same bytes on disk
-    and on the wire, so nothing device-side is hidden by it).
+    text signatures, BM25, the epoll HTTP front): g++, as ucfp_tpu/native
+    builds them, from the sources in the package alone (native/xxhash.h
+    included). A failed host build returns None and the caller keeps its
+    pure-Python path (same bytes on disk and on the wire, so nothing
+    device-side is hidden by it). UCFP_NATIVE_SANITIZE (say
+    address,undefined) adds -fsanitize=<value> and writes the library
+    under a name of its own per mode (libucfpwal.address-undefined.san.so),
+    so a sanitized build never replaces the production one; the loading
+    process must preload the sanitizer's runtime (native/sanitize.py).
 """
 
 from __future__ import annotations
@@ -116,6 +121,23 @@ def kernel_library() -> ctypes.CDLL:
     return _kernels
 
 
+def sanitize_flags() -> list[str]:
+    """The g++ flags UCFP_NATIVE_SANITIZE asks for (none when unset)."""
+    san = os.environ.get("UCFP_NATIVE_SANITIZE", "").strip()
+    return [f"-fsanitize={san}", "-fno-omit-frame-pointer", "-g"] if san else []
+
+
+def host_lib_name(lib_name: str) -> str:
+    """lib_name, or under UCFP_NATIVE_SANITIZE its sanitized artifact's
+    name: one per sanitizer mode (an ASan library loaded under a TSan
+    preload aborts at start)."""
+    san = os.environ.get("UCFP_NATIVE_SANITIZE", "").strip()
+    if san:
+        slug = san.replace(",", "-").replace("=", "")
+        return lib_name.replace(".so", f".{slug}.san.so")
+    return lib_name
+
+
 def build_host(src_name: str, lib_name: str,
                headers: tuple[str, ...] = ()) -> str | None:
     """g++ build of native/<src_name> into _build/<lib_name>, rebuilt
@@ -124,7 +146,7 @@ def build_host(src_name: str, lib_name: str,
     path)."""
     native = os.path.join(PKG_DIR, "native")
     src = os.path.join(native, src_name)
-    out = os.path.join(BUILD_DIR, lib_name)
+    out = os.path.join(BUILD_DIR, host_lib_name(lib_name))
     deps = [src] + [os.path.join(native, h) for h in headers]
     with _lock:
         if not _stale(out, deps):
@@ -138,7 +160,7 @@ def build_host(src_name: str, lib_name: str,
             try:
                 subprocess.run(
                     ["g++", *opt, "-std=c++17", "-pthread", "-fPIC", "-shared",
-                     f"-I{native}", "-o", tmp, src],
+                     f"-I{native}", *sanitize_flags(), "-o", tmp, src],
                     check=True, capture_output=True, timeout=120,
                 )
                 os.replace(tmp, out)

@@ -44,7 +44,12 @@ Not ported here: the HTTP keys, the serving-overhead key
 (it drives scripts/ against the reference), parity (chip_smoke.py phase 4
 holds the image digests on the card), the sharded merge model and every
 key derived from it (its constants are link speeds of the reference's
-hardware, which do not apply to this card), and UCFP_PROFILE_DIR.
+hardware, which do not apply to this card).
+
+UCFP_PROFILE_DIR=<dir> records the whole run with torch.profiler (CPU
+activity, and CUDA activity on the card) and writes a Chrome trace
+(ucfp-bench-<pid>.json, for chrome://tracing or Perfetto) into <dir>;
+a profiler that cannot start or write stops the run with an error.
 """
 
 from __future__ import annotations
@@ -773,6 +778,20 @@ def _run_all(dev: torch.device) -> tuple[dict, dict]:
     return x768, last
 
 
+def run(dev: torch.device) -> tuple[dict, dict]:
+    """Every key on dev -> (the 10M x 768 line, the last line); under
+    torch.profiler when UCFP_PROFILE_DIR is set."""
+    profile_dir = os.environ.get("UCFP_PROFILE_DIR")
+    if not profile_dir:
+        return _run_all(dev)
+    from .server.profiler import record_trace
+
+    out, info = record_trace(lambda: _run_all(dev), profile_dir,
+                             f"ucfp-bench-{os.getpid()}.json")
+    print(f"bench: trace written to {info['trace']}", file=sys.stderr, flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m ucfp_tpu_torch.bench",
                                 description=__doc__.split("\n\n")[0])
@@ -784,7 +803,7 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"bench: {e}", file=sys.stderr)
         return 2
-    x768, last = _run_all(dev)
+    x768, last = run(dev)
     line = json.dumps(last)
     if len(line.encode()) > LAST_LINE_MAX:
         raise RuntimeError(f"the last line is {len(line.encode())} bytes, "

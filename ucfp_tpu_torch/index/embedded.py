@@ -68,7 +68,16 @@ fingerprints are wider than the fused Hamming scan's 16 words, so their
 queries take the exact scan, as in the reference. Replaying the WAL on
 open rebuilds both indexes.
 
-Not in this slice (a later port): autocompaction.
+Compaction (the reference's compact and _snapshot_frames, host code):
+the log is rewritten as a snapshot of the live rows, two-phase, so
+queries and writes go on during the rewrite; the native engine writes it
+as the same run frames, so a compacted port log is byte-equal to the
+reference's. UCFP_AUTOCOMPACT_MB bounds the log's growth: after a write,
+once the log is past that many MiB and has doubled since the last
+snapshot, a worker thread compacts it (maybe_autocompact). Compactions
+run one at a time: compact waits for a running one, autocompaction
+skips while one runs. (The reference lets two run at once, and the
+second can drop writes it acknowledged.)
 """
 
 from __future__ import annotations
@@ -78,7 +87,7 @@ import itertools
 import os
 import threading
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -112,6 +121,23 @@ SPECIAL_INDEX_ALGOS = frozenset((LSH_ALGORITHM, *AUDIO_LANDMARK_ALGOS,
 #: the UCFP_KNN_QUANT tiers, whose vector caches hold int8 rows; "none" and
 #: any other value serve the exact f32 path, as in the reference
 QUANT_TIERS = ("int8", "int4", "int2", "sketch")
+
+
+def _upsert_event(tenant_id: int, record_id: int, row: dict) -> dict:
+    return {
+        "op": "upsert",
+        "tenant_id": tenant_id,
+        "record_id": record_id,
+        "modality": row["modality"],
+        "algorithm": row["algorithm"],
+        "config_hash": row["config_hash"],
+        "format_version": row["format_version"],
+        "fingerprint": row["fingerprint"],
+        "embedding": row["embedding"],
+        "model_id": row["model_id"],
+        "metadata": row["metadata"],
+        "text": row["text"],
+    }
 
 
 def _record_event(rec: Record) -> dict:
@@ -481,6 +507,10 @@ class EmbeddedBackend(IndexBackend):
         os.makedirs(data_dir, exist_ok=True)
         self._wal_path = os.path.join(data_dir, "ucfp.wal")
         self._lock = threading.Lock()  # one writer, same-txn BM25 semantics
+        # one compaction at a time: two rewrites would share the WAL's
+        # engine and buffer watermark (reentrant: maybe_autocompact
+        # holds it around compact)
+        self._compact_lock = threading.RLock()
         self._records: dict[tuple[int, int], dict] = {}
         from .bm25 import make_engine
 
@@ -506,6 +536,9 @@ class EmbeddedBackend(IndexBackend):
         except BaseException:
             self._wal.close()
             raise
+        # the log's size at the last snapshot (here: at open), the base of
+        # autocompaction's doubling rule
+        self._wal_floor = self._wal_size()
 
     # -- WAL ----------------------------------------------------------------
 
@@ -966,6 +999,7 @@ class EmbeddedBackend(IndexBackend):
         if ticket is not None:
             # durability before ack: a failed group fsync raises here
             await wal.wait_durable(ticket)
+        await self._maybe_autocompact_async()
 
     def _columnar_ok(self, n: int, algorithm: str, fingerprints: list,
                      record_ids: list[int]) -> int:
@@ -1051,6 +1085,7 @@ class EmbeddedBackend(IndexBackend):
         (ticket,) = done
         if ticket is not None:
             await wal.wait_durable(ticket)
+        await self._maybe_autocompact_async()
 
     async def upsert_embedding_batch(
         self,
@@ -1127,6 +1162,7 @@ class EmbeddedBackend(IndexBackend):
         (ticket,) = done
         if ticket is not None:
             await wal.wait_durable(ticket)
+        await self._maybe_autocompact_async()
 
     def _store_rows(self, t: int, alg: str, rids: list[int], fps: list[bytes],
                     flen: int, mod_value: str, cfg, fmt, meta: bytes,
@@ -1217,6 +1253,7 @@ class EmbeddedBackend(IndexBackend):
         ticket = await asyncio.to_thread(apply)
         if ticket is not None:
             await wal.wait_durable(ticket)
+        await self._maybe_autocompact_async()
 
     # -- device caches ------------------------------------------------------------
 
@@ -2252,3 +2289,167 @@ class EmbeddedBackend(IndexBackend):
         if self._wal is not None:
             self._wal.close()
             self._wal = None
+
+    def compact(self) -> None:
+        """Rewrite the WAL as a snapshot of current state (checkpoint).
+
+        Two-phase: the store lock is held only to pin the snapshot
+        (sorted row REFS — rows are replaced, never mutated, so the
+        refs stay stable) and take the WAL buffer watermark; the encode
+        + file write + fsync run OUTSIDE the lock, so queries and
+        memory applies proceed during the rewrite (durability acks for
+        concurrent ingest wait until the swap, then drain to the new
+        log). On the native engine the snapshot is emitted as
+        array-direct run frames (byte-identical to the per-event
+        encode, so the compacted log is unchanged — only the encode
+        cost drops) and the resulting uniform runs make the NEXT
+        replay columnar too. A call made while another compaction runs
+        waits for it, then compacts."""
+        with self._compact_lock:
+            wal = self._wal
+            ctx = wal.begin_rewrite()
+            try:
+                with self._lock:
+                    wal.mark_rewrite(ctx)
+                    items = sorted(self._records.items())
+                if wal.supports_encoded_rewrite:
+                    wal.commit_rewrite(ctx, blobs=self._snapshot_frames(items))
+                else:
+                    wal.commit_rewrite(ctx, events=[
+                        _upsert_event(tid, rid, row)
+                        for (tid, rid), row in items
+                    ])
+            except BaseException:
+                wal.abort_rewrite(ctx)
+                raise
+            self._wal_floor = self._wal_size()
+
+    def _snapshot_frames(self, items: list) -> Iterator:
+        """Encoded WAL frames of a pinned state snapshot (sorted
+        ((tenant, rid), row) items) — single frames (bytes) for rows
+        with optional fields, fixed-length frame blocks
+        ((bytes, frame_len, count)) for maximal uniform
+        fingerprint-only runs, the shape NativeWal.rewrite_encoded
+        appends in one C call. The framed bytes are identical to
+        [encode_event(_upsert_event(...))] in the same order
+        (encode_fp_run_block's contract), so this changes the
+        snapshot's cost, never its bytes."""
+        from .wal import (encode_emb_run_block, encode_event,
+                          encode_fp_run_block)
+
+        n = len(items)
+        i = 0
+        while i < n:
+            (tid, rid), row = items[i]
+            if (row["text"] is not None
+                    or (row["embedding"] is None and row["model_id"])
+                    or (row["embedding"] is not None
+                        and len(row["embedding"]) == 0)):
+                # text rows, model-without-embedding, and degenerate
+                # empty embeddings stay per-frame
+                yield encode_event(_upsert_event(tid, rid, row))
+                i += 1
+                continue
+            if row["embedding"] is not None:
+                mod0 = row["modality"]
+                alg0 = row["algorithm"]
+                cfg0 = row["config_hash"]
+                fmt0 = row["format_version"]
+                meta0 = row["metadata"]
+                model0 = row["model_id"]
+                flen0 = len(row["fingerprint"])
+                elen0 = len(row["embedding"])
+                j = i + 1
+                while j < n:
+                    (t2, _), r2 = items[j]
+                    e2 = r2["embedding"]
+                    if (t2 != tid
+                            or e2 is None or len(e2) != elen0
+                            or r2["model_id"] != model0
+                            or r2["text"] is not None
+                            or r2["algorithm"] != alg0
+                            or r2["modality"] != mod0
+                            or r2["config_hash"] != cfg0
+                            or r2["format_version"] != fmt0
+                            or r2["metadata"] != meta0
+                            or len(r2["fingerprint"]) != flen0):
+                        break
+                    j += 1
+                yield encode_emb_run_block(
+                    tid, mod0,
+                    [items[k][0][1] for k in range(i, j)],
+                    [items[k][1]["fingerprint"] for k in range(i, j)],
+                    [items[k][1]["embedding"] for k in range(i, j)],
+                    algorithm=alg0, model_id=model0, config_hash=cfg0,
+                    format_version=fmt0, metadata=meta0,
+                )
+                i = j
+                continue
+            mod0 = row["modality"]
+            alg0 = row["algorithm"]
+            cfg0 = row["config_hash"]
+            fmt0 = row["format_version"]
+            meta0 = row["metadata"]
+            flen0 = len(row["fingerprint"])
+            j = i + 1
+            while j < n:
+                (t2, _), r2 = items[j]
+                if (t2 != tid
+                        or r2["embedding"] is not None or r2["model_id"]
+                        or r2["text"] is not None
+                        or r2["algorithm"] != alg0 or r2["modality"] != mod0
+                        or r2["config_hash"] != cfg0
+                        or r2["format_version"] != fmt0
+                        or r2["metadata"] != meta0
+                        or len(r2["fingerprint"]) != flen0):
+                    break
+                j += 1
+            # validate=False: every row passed Record validation at
+            # ingest (u64 rid, bytes fingerprint); the loop above pinned
+            # the uniform width
+            yield encode_fp_run_block(
+                tid, mod0,
+                [items[k][0][1] for k in range(i, j)],
+                [items[k][1]["fingerprint"] for k in range(i, j)],
+                algorithm=alg0, config_hash=cfg0, format_version=fmt0,
+                metadata=meta0, validate=False,
+            )
+            i = j
+
+    def _wal_size(self) -> int:
+        try:
+            return os.path.getsize(self._wal_path)
+        except OSError:
+            return 0
+
+    async def _maybe_autocompact_async(self) -> None:
+        """Event-loop-safe autocompact: the cheap threshold check runs
+        inline; the compaction itself (backend lock + full WAL rewrite +
+        fsyncs, ~0.3 s per 100k records) runs in a worker thread so it
+        never freezes concurrent requests."""
+        if self._autocompact_due():
+            await asyncio.to_thread(self.maybe_autocompact)
+
+    def _autocompact_due(self) -> bool:
+        thresh_mb = float(os.environ.get("UCFP_AUTOCOMPACT_MB", "0") or 0)
+        if thresh_mb <= 0:
+            return False
+        size = self._wal_size()
+        floor = getattr(self, "_wal_floor", 0)
+        return size > thresh_mb * 1024 * 1024 and size > 2 * max(floor, 1)
+
+    def maybe_autocompact(self) -> bool:
+        """Opt-in log-growth bound (UCFP_AUTOCOMPACT_MB): compact when
+        the WAL exceeds the threshold AND has doubled since the last
+        snapshot — churn-heavy deployments otherwise replay every
+        superseded event on restart. Returns True when it compacted;
+        False, without waiting, while another compaction runs."""
+        if not self._compact_lock.acquire(blocking=False):
+            return False
+        try:
+            if self._autocompact_due():
+                self.compact()
+                return True
+            return False
+        finally:
+            self._compact_lock.release()

@@ -1426,8 +1426,10 @@ class GroupCommitWal:
     def begin_rewrite(self) -> dict:
         """Phase 1: park the writer thread so the inner engine belongs
         to the rewriter. Appenders keep buffering; durability waits
-        until commit/abort."""
+        until commit/abort. One rewrite at a time: a second raises."""
         with self._cv:
+            if self._paused:
+                raise RuntimeError("a WAL rewrite is already in progress")
             self._paused = True
             while self._in_round:
                 self._cv.wait()

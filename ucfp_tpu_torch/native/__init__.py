@@ -1,14 +1,20 @@
 """Native (C++) host components: the WAL engine, the batch image
-decoder, the text-signature hot path and the BM25 engine.
+decoder, the text-signature hot path, the BM25 engine and the epoll HTTP
+front.
 
 The sources are copies of ucfp_tpu/native/walstore.cpp, imgbatch.cpp,
-textsig.cpp (with its generated wb_table.h) and bm25.cpp; textsig.cpp
+textsig.cpp (with its generated wb_table.h), bm25.cpp and httpfront.cpp;
+textsig.cpp
 includes the xxHash 0.8.3 header shipped beside it (xxhash.h,
 BSD-2-Clause), so the native text code builds from the package's own
 sources. The loaders mirror ucfp_tpu/native/__init__.py but build into
 the port's ignored `_build/` directory (see ucfp_tpu_torch/_build.py).
 Each returns None when the toolchain is unavailable, and the caller keeps
-its pure-Python path, which gives the same bytes and scores.
+its pure-Python path, which gives the same bytes and scores (the HTTP
+front has none: NativeHttpBridge refuses to start without it).
+UCFP_NATIVE_SANITIZE=address,undefined builds them under ASan/UBSan as
+separate `.san.so` libraries (_build.build_host; the driver is
+native/sanitize.py).
 """
 
 from __future__ import annotations
@@ -17,6 +23,45 @@ import ctypes
 import functools
 
 from .._build import build_host
+
+
+class UcfpHttpReq(ctypes.Structure):
+    _fields_ = [
+        ("id", ctypes.c_uint64),
+        ("method", ctypes.c_char_p),
+        ("path", ctypes.c_char_p),
+        ("headers", ctypes.c_char_p),
+        ("body", ctypes.POINTER(ctypes.c_uint8)),
+        ("body_len", ctypes.c_uint32),
+        ("peer", ctypes.c_char_p),
+    ]
+
+
+@functools.lru_cache(maxsize=1)
+def load_httpfront():
+    """Load (building if needed) the native epoll HTTP front, or None."""
+    out = build_host("httpfront.cpp", "libucfphttp.so")
+    if out is None:
+        return None
+    try:
+        lib = ctypes.CDLL(out)
+    except OSError:
+        return None
+    lib.ucfp_http_start.restype = ctypes.c_void_p
+    lib.ucfp_http_start.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_uint32]
+    lib.ucfp_http_port.restype = ctypes.c_int
+    lib.ucfp_http_port.argtypes = [ctypes.c_void_p]
+    lib.ucfp_http_next.restype = ctypes.c_int
+    lib.ucfp_http_next.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(UcfpHttpReq)
+    ]
+    lib.ucfp_http_free_req.argtypes = [ctypes.POINTER(UcfpHttpReq)]
+    lib.ucfp_http_respond.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_uint32, ctypes.c_int,
+    ]
+    lib.ucfp_http_stop.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 @functools.lru_cache(maxsize=1)

@@ -16,9 +16,11 @@
     usage UCFP_USAGE_WEBHOOK_URL > UCFP_USAGE_LOG_PATH > noop; the
     keystore and accounts under the data directory
 
-What the reference offers beyond this (a non-zero
-UCFP_INGEST_COALESCE_MS, UCFP_WORKERS, UCFP_HTTP=native) is refused at
-start, naming the ROADMAP item that brings it.
+  * the launcher (run): boot warm-up (server/warmup.py, unless
+    UCFP_WARMUP=0), the asyncio front or the native epoll front
+    (UCFP_HTTP=native, server/nativehttp.py), SO_REUSEPORT for the
+    multi-worker front's workers (server/multiworker.py), and a graceful
+    drain on SIGTERM/SIGINT
 
 Run: python -m ucfp_tpu_torch.server --bind 127.0.0.1:8080 --token t --data-dir d
 """
@@ -390,19 +392,18 @@ def state_from_env(
     keystore=None,
     accounts=None,
     device=None,
-    workers: Optional[int] = None,
-    native_http: Optional[bool] = None,
+    inputs=None,
 ) -> ServerState:
     """Env-driven composition with the reference's precedence and
     refuse-if-no-auth rule (bin/ucfp.rs:106-205).
 
-    index/keystore/accounts override the locally-opened stores. The
-    index opens on `device` (the CUDA card by default) and shards as the
-    reference does on a CUDA device with at least two cards (UCFP_SHARD,
-    UCFP_MESH_SHAPE; EmbeddedBackend's mesh rule); a CPU device never
-    shards. What this build does not serve yet stops it first
-    (refuse_deferred; workers / native_http are the command line's)."""
-    refuse_deferred(workers, native_http)
+    index/keystore/accounts/inputs override the locally-opened stores:
+    the multi-worker front passes Remote* proxies (server/ipc.py), so
+    only the owner process opens the data directory and holds the card.
+    The index opens on `device` (the CUDA card by default) and shards as
+    the reference does on a CUDA device with at least two cards
+    (UCFP_SHARD, UCFP_MESH_SHAPE; EmbeddedBackend's mesh rule); a CPU
+    device never shards."""
     data_dir = data_dir or os.environ.get("UCFP_DATA_DIR", "./ucfp-data")
     # auth precedence: UCFP_KEY_LOOKUP_URL > UCFP_KEYS_FILE > UCFP_TOKEN,
     # else refuse (bin/ucfp.rs:106-148)
@@ -484,46 +485,20 @@ def state_from_env(
         api_keys=composite,
         rate_limit=rate_limit,
         usage=usage,
-        inputs=InputsCache(),
+        inputs=inputs if inputs is not None else InputsCache(),
         keystore=keystore,
         accounts=accounts,
         challenge=challenge,
     )
 
 
-def refuse_deferred(workers: Optional[int] = None,
-                    native_http: Optional[bool] = None) -> None:
-    """Refuse to start with a setting this build does not serve yet,
-    rather than silently serving without it. Arguments win over the
-    environment (UCFP_INGEST_COALESCE_MS, UCFP_WORKERS, UCFP_HTTP)."""
-    coalesce_ms = float(os.environ.get("UCFP_INGEST_COALESCE_MS", "0") or 0)
-    if coalesce_ms > 0:
-        raise SystemExit(
-            "refusing to start: UCFP_INGEST_COALESCE_MS > 0 (cross-request "
-            "ingest coalescing, ROADMAP queue 1 item 9) is not served by "
-            "this build yet; unset it or set 0"
-        )
-    if workers is None:
-        workers = int(os.environ.get("UCFP_WORKERS", "0") or 0)
-    if workers > 0:
-        raise SystemExit(
-            "refusing to start: UCFP_WORKERS / --workers (the multi-worker "
-            "front, ROADMAP queue 1 item 18) is not served by this build "
-            "yet; unset it or set 0"
-        )
-    if native_http is None:
-        native_http = os.environ.get("UCFP_HTTP", "").lower() == "native"
-    if native_http:
-        raise SystemExit(
-            "refusing to start: UCFP_HTTP=native / --native-http (the native "
-            "HTTP front, ROADMAP queue 1 item 18) is not served by this "
-            "build yet"
-        )
-
-
-async def run(bind: str, state: ServerState) -> None:
+async def run(bind: str, state: ServerState, native_http: bool | None = None,
+              reuse_port: bool = False) -> None:
     """Serve until SIGTERM/SIGINT, then drain in-flight requests inside
-    UCFP_DRAIN_SECS and close the index (WAL flushed)."""
+    UCFP_DRAIN_SECS and close the index (WAL flushed). Starts the boot
+    warm-up unless UCFP_WARMUP=0; native_http (default: UCFP_HTTP=native)
+    serves through the C++ epoll front; reuse_port binds with
+    SO_REUSEPORT (the multi-worker front's workers)."""
     import signal
 
     from .logging import logger
@@ -531,6 +506,14 @@ async def run(bind: str, state: ServerState) -> None:
     host, _, port = bind.rpartition(":")
     host = host or "127.0.0.1"
     server = build_server(state)
+    if os.environ.get("UCFP_WARMUP", "1") != "0":
+        # the first load of each kernel library, the first launch of each
+        # fused scan and the cuBLAS handle, off the request path
+        from .warmup import start_background_warmup
+
+        start_background_warmup(state.index.device)
+    if native_http is None:
+        native_http = os.environ.get("UCFP_HTTP", "").lower() == "native"
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -539,18 +522,34 @@ async def run(bind: str, state: ServerState) -> None:
         except (NotImplementedError, RuntimeError):  # pragma: no cover
             pass
     drain_secs = float(os.environ.get("UCFP_DRAIN_SECS", "10"))
-    srv = await server.serve(host, int(port))
-    logger().info("serving", front="asyncio", port=int(port),
-                  device=str(state.index.device), shards=state.index._n_shards())
-    serve_task = asyncio.create_task(srv.serve_forever())
-    await stop.wait()
-    logger().info("draining", deadline_s=drain_secs)
-    srv.close()  # stop accepting; existing connections continue
-    ok = await server.drain(drain_secs)
-    try:
-        await asyncio.wait_for(srv.wait_closed(), timeout=5.0)
-    except asyncio.TimeoutError:  # pragma: no cover - defensive
-        pass
+    shards = getattr(state.index, "_n_shards", lambda: 1)()
+    if native_http:
+        from .nativehttp import NativeHttpBridge
+
+        bridge = NativeHttpBridge(server, host, int(port))
+        logger().info("serving", front="native-epoll", port=bridge.port,
+                      device=str(state.index.device), shards=shards)
+        serve_task = asyncio.create_task(bridge.serve_forever())
+        await stop.wait()
+        logger().info("draining", deadline_s=drain_secs)
+        # pause keeps the native server alive so in-flight handlers can
+        # still respond; stop() frees it after the drain
+        await asyncio.to_thread(bridge.pause)
+        ok = await server.drain(drain_secs)
+        bridge.stop()
+    else:
+        srv = await server.serve(host, int(port), reuse_port=reuse_port)
+        logger().info("serving", front="asyncio", port=int(port),
+                      device=str(state.index.device), shards=shards)
+        serve_task = asyncio.create_task(srv.serve_forever())
+        await stop.wait()
+        logger().info("draining", deadline_s=drain_secs)
+        srv.close()  # stop accepting; existing connections continue
+        ok = await server.drain(drain_secs)
+        try:
+            await asyncio.wait_for(srv.wait_closed(), timeout=5.0)
+        except asyncio.TimeoutError:  # pragma: no cover - defensive
+            pass
     serve_task.cancel()
     try:
         await serve_task
@@ -560,5 +559,15 @@ async def run(bind: str, state: ServerState) -> None:
         state.index.close()
     except Exception as e:  # pragma: no cover - close must not flip exit 0
         logger().warn("index_close_failed", error=str(e))
-    logger().info("stopped", drained=ok)
+    logger().info("stopped", drained=ok, kernel_launches=kernel_launches())
     logger().close()
+
+
+def kernel_launches() -> int:
+    """This process's CUDA kernel launches since boot, summed over every
+    kernel wrapper's count (0 in a process that never held the card)."""
+    from ..ops import fused_scan, int2_scan, int4_scan, sketch_scan
+    from ..ops.audio import haitsma
+
+    return sum(n for mod in (fused_scan, int4_scan, int2_scan, sketch_scan, haitsma)
+               for n in mod.LAUNCHES.values())

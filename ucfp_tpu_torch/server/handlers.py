@@ -9,7 +9,7 @@ the reference for the same request:
   protected: GET  /v1/auth/whoami
              POST|GET /v1/admin/keys, DELETE /v1/admin/keys/{key_id}
              GET  /v1/admin/usage                   tail of the usage log
-             POST /v1/admin/compact                 501 (not served yet)
+             POST /v1/admin/compact                 checkpoint the WAL (service bearer)
              POST /v1/inputs[/{tid}], DELETE /v1/inputs/{tid}/{input_id}
              POST /v1/pipeline/inspect/{text|image|audio}[/{tid}]
              PUT|POST /v1/records                  raw Record upsert
@@ -42,8 +42,9 @@ the reference for the same request:
 Image hashing, the audio fingerprints, the inspectors' device stages
 and the stand-in encoders run on the backend's device; text signatures,
 BM25 and the embedding reranker are host code. ?input_id= on the ingest
-and inspect routes reads the body from the inputs cache. Compaction is
-not served by this build yet and answers 501.
+and inspect routes reads the body from the inputs cache. With
+UCFP_INGEST_COALESCE_MS > 0 concurrent single-hash groups of the bulk
+image route merge into one device launch (group_hash_batcher).
 
 tenant_guard: a key with tenant 0 is the service bearer and may touch any
 tenant; any other key must match the path/body tenant exactly or gets 403.
@@ -144,9 +145,25 @@ def _hash_image_group(algo: str, gray: np.ndarray, h: int, w: int,
     return _hash_single_rows(algo, gray, h, w, count, device)
 
 
+def _pad_rows(gray: np.ndarray, count: int, pad_to: int) -> np.ndarray:
+    """[count, H, W] -> [pad_to or the next power of two, H, W], padded
+    with copies of the last row (the reference's pad rule); a single
+    hash is per row, so the pad rows change no fingerprint."""
+    cap = max(pad_to, count) if pad_to else (
+        1 << (count - 1).bit_length() if count > 1 else 1)
+    if cap == count:
+        return gray
+    return np.concatenate([gray, np.repeat(gray[-1:], cap - count, axis=0)], axis=0)
+
+
 def _hash_single_rows(algo: str, gray: np.ndarray, h: int, w: int,
-                      count: int, device) -> list[bytes]:
-    """One single-hash launch over target-shape luma rows [count, H, W]."""
+                      count: int, device, pad_to: int | None = None) -> list[bytes]:
+    """One single-hash launch over target-shape luma rows [count, H, W].
+    pad_to=None launches at the batch's own size; the cross-request
+    coalescer pads on the host before the upload, to its row cap
+    (pad_to > 0, UCFP_INGEST_PAD=max) or the next power of two (0)."""
+    if pad_to is not None:
+        gray = _pad_rows(gray, count, pad_to)
     out = imod.device_get(
         imagehash.single_hash_kernel_gray(gray, h, w, algo, device=device))
     return [bytes(out[i]) for i in range(count)]
@@ -200,10 +217,6 @@ def _algo_gate(algorithm_id: str) -> None:
         )
 
 
-def _not_served(what: str) -> HttpError:
-    return HttpError(501, "unsupported", f"{what} is not served by this build yet")
-
-
 def _tag_usage(req: Request, modality: str, algorithm: Optional[str]) -> None:
     """Resolved modality/algorithm for the middleware's UsageEvent (the
     usage dashboard groups on them)."""
@@ -253,11 +266,6 @@ class Handlers:
         self.accounts = accounts  # Optional[AccountStore]
         self.matcher = Matcher(index)
         self.started = time.time()
-        # cross-request ingest coalescing is not served by this build
-        # (the server refuses UCFP_INGEST_COALESCE_MS > 0); /v1/info
-        # reports its counters as the reference does with it off
-        self.ingest_coalesce_flushes = 0
-        self.ingest_coalesce_groups = 0
         # cross-request device batching for image hashing: concurrent
         # same-shape decodes share one kernel launch (2 ms deadline,
         # 64-image batches)
@@ -283,6 +291,48 @@ class Handlers:
 
         self.image_batcher = DeadlineBatcher(_run_image_batch, max_batch=64,
                                              max_delay_ms=2.0)
+
+        # cross-REQUEST coalescing for the bulk image route (off by
+        # default, as in the reference; UCFP_INGEST_COALESCE_MS > 0 turns
+        # it on): concurrent [N, H, W] groups, already host-resized to the
+        # algorithm's target shape, merge into one single-hash launch of
+        # at most UCFP_INGEST_COALESCE_ROWS rows, padded to the pow2
+        # ladder or, under UCFP_INGEST_PAD=max, to the row cap
+        import os
+
+        coalesce_ms = float(os.environ.get("UCFP_INGEST_COALESCE_MS", "0") or 0)
+        self._coalesce_on = coalesce_ms > 0
+        self._coalesce_rows = int(os.environ.get("UCFP_INGEST_COALESCE_ROWS", "8192"))
+        self._ingest_pad = os.environ.get("UCFP_INGEST_PAD", "pow2")
+        # flushes and the groups they carried since boot (/v1/info)
+        self.ingest_coalesce_flushes = 0
+        self.ingest_coalesce_groups = 0
+
+        async def _run_hash_groups(bucket, groups):
+            algo, h, w = bucket
+            counts = [g.shape[0] for g in groups]
+            total = sum(counts)
+            self.ingest_coalesce_flushes += 1
+            self.ingest_coalesce_groups += len(groups)
+
+            def work():
+                gray = groups[0] if len(groups) == 1 else np.concatenate(groups, axis=0)
+                pad_to = self._coalesce_rows if self._ingest_pad == "max" else 0
+                fps = _hash_single_rows(algo, gray, h, w, total, self.device, pad_to)
+                out, off = [], 0
+                for c in counts:
+                    out.append(fps[off:off + c])
+                    off += c
+                return out
+
+            return await asyncio.to_thread(work)
+
+        self.group_hash_batcher = DeadlineBatcher(
+            _run_hash_groups,
+            max_batch=self._coalesce_rows,
+            max_delay_ms=coalesce_ms or 2.0,
+            weigh=lambda g: g.shape[0],
+        )
 
     # -- public ---------------------------------------------------------------
 
@@ -1278,8 +1328,16 @@ class Handlers:
                 raise HttpError(400, "bad_body", "batch exceeds 1024 images")
             if code == 0:
                 n, h, w = gray.shape
-                return rids, _hash_image_group(algorithm, gray, h, w, n,
-                                               self.device)
+                if algorithm != "multi" and self._coalesce_on:
+                    # host-resize to the hash's target shape here, hash
+                    # through the cross-request coalescer after the
+                    # thread hop (concurrent requests share a launch)
+                    th, tw = imod.SINGLE_HASH_INPUT[algorithm]
+                    if (h, w) != (th, tw):
+                        gray = imod.resize_gray_batch(gray, th, tw)
+                    return rids, gray, None
+                return rids, None, _hash_image_group(algorithm, gray, h, w, n,
+                                                     self.device)
             # Python fallback: mixed shapes / non-BMP formats / frames
             # outside the preprocess limits (exact per-image errors)
             mv = memoryview(raw)
@@ -1304,6 +1362,19 @@ class Handlers:
             groups: dict[tuple[int, int], list[int]] = {}
             for i, g in enumerate(grays):
                 groups.setdefault(g.shape, []).append(i)
+            if algorithm != "multi" and self._coalesce_on:
+                # single hashes share one target shape, so a mixed-size
+                # batch still merges into ONE group for the coalescer:
+                # host-resize each shape group, reassemble in frame order
+                th, tw = imod.SINGLE_HASH_INPUT[algorithm]
+                small = np.empty((len(frames), th, tw), np.uint8)
+                for (h, w), idxs in groups.items():
+                    batch = np.stack([grays[i] for i in idxs])
+                    if (h, w) != (th, tw):
+                        batch = imod.resize_gray_batch(batch, th, tw)
+                    for j, i in enumerate(idxs):
+                        small[i] = batch[j]
+                return [rid for rid, _ in frames], small, None
             fps: list[bytes] = [b""] * len(frames)
             for (h, w), idxs in groups.items():
                 batch = np.stack([grays[i] for i in idxs])
@@ -1311,12 +1382,16 @@ class Handlers:
                                            self.device)
                 for j, i in enumerate(idxs):
                     fps[i] = hashed[j]
-            return [rid for rid, _ in frames], fps
+            return [rid for rid, _ in frames], None, fps
 
         try:
-            rids, fps = await asyncio.to_thread(work)
+            rids, gray, fps = await asyncio.to_thread(work)
         except UcfpError as e:
             raise _err(e)
+        if fps is None:
+            # coalesced: concurrent bulk requests share one device launch
+            fps = await self.group_hash_batcher.submit(
+                (algorithm, gray.shape[1], gray.shape[2]), gray)
         _tag_usage(req, "image", algo_tag)
         # columnar upsert: one WAL run append + one vectorized apply
         await self.index.upsert_fingerprint_batch(
@@ -1754,10 +1829,15 @@ class Handlers:
         return Response.json({"revoked": 1})
 
     async def admin_compact(self, req: Request) -> Response:
-        """Checkpoint the WAL: not served by this build yet (501).
-        Service bearer only, as the reference's."""
+        """Checkpoint the WAL (the append-only log needs it under churn).
+        Service bearer only: the snapshot is store-global."""
         self._require_service(req)
-        raise _not_served("compaction (/v1/admin/compact)")
+        before = self.index._wal_size()
+        await asyncio.to_thread(self.index.compact)
+        return Response.json(
+            {"compacted": True, "wal_bytes_before": before,
+             "wal_bytes_after": self.index._wal_size()}
+        )
 
     async def admin_usage(self, req: Request) -> Response:
         """Tail the NDJSON usage log (reference web usage view analog).
